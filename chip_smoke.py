@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's per-frame tracking step (mono ORB extraction at
-640x480 / 1000 features / 8 levels, projection matching of a
-2048-point local map, motion-only BA) through its two hand-written
-CUDA kernels, and checks each kernel and the step against their plain
-PyTorch versions. Phases, each of which raises on a failed check:
+Drives the port's per-frame tracking through its two hand-written CUDA
+kernels and checks each kernel and each path against their plain
+PyTorch versions: the mono step of slice 1 (640x480 / 1000 features /
+a 2048-point local map), and the whole per-frame program
+(`entry.track_frame_step`: stereo frame build, motion-model tracking,
+local-map tracking, keyframe-decision counts) at the KITTI
+configuration, 1241x376 / 2000 features / a map of 384 keyframes and
+131072 points, 200 and 110000 of them live. Phases, each of which
+raises on a failed check:
 
 1. build both kernels from orb_slam2_test_tpu_torch/csrc (nvcc, sm_90a);
 2. patch_gather vs its plain version on all 8 pyramid levels: bit-exact;
@@ -18,7 +22,24 @@ PyTorch versions. Phases, each of which raises on a failed check:
    of the inliers, and at most 3 flipped descriptor bits between the
    card's bf16 BRIEF selection and the CPU's float32 one;
 5. timing with CUDA events (median of 30 after warm-up): each kernel vs
-   its plain version, and the step in ms per frame.
+   its plain version, and the step in ms per frame;
+6. the main path, one KITTI stereo frame through `track_frame_step` on
+   `entry.kitti_scene`: exactly 32 patch_gather and 2 pose_opt
+   launches, the local-map pose within 1 cm of T_true, n_inliers >= 80%
+   of the scene's points, a stereo depth on >= half the valid features,
+   and the same frame on the CPU within pose atol 1e-4, 1% of the
+   inliers and 1% of the features in the stereo-valid set;
+7. both kernels on that frame's inputs: patch_gather bit-exact on the
+   right-image SAD coordinates (border-clipped ones included), pose_opt
+   on its local-map problem with stereo rows (Tcw atol 1e-4, inlier
+   agreement > 0.99, chi2 rtol 1e-3);
+8. one RGB-D frame through `_build_and_track_device(sensor="rgbd")` at
+   640x480 / 1000 features on a seeded depth map (untimed): 8 + 2
+   launches, pose within 1 cm, the same frame on the CPU within atol
+   1e-4 and 1% of the inliers;
+9. KITTI timing, CUDA events (median of 30 after warm-up) and host wall:
+   build_frame_stereo, _track_frame_device and track_frame_step, and
+   each kernel on that frame's inputs against its plain version.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -84,7 +105,7 @@ def main() -> int:
         return 1
 
     from orb_slam2_test_tpu_torch import entry
-    from orb_slam2_test_tpu_torch.engine.frame import build_frame_mono
+    from orb_slam2_test_tpu_torch.engine.frame import build_frame_mono, build_frame_stereo
     from orb_slam2_test_tpu_torch.ops import patches
     from orb_slam2_test_tpu_torch.ops.extractor import level_feature_budget
     from orb_slam2_test_tpu_torch.ops.pyramid import build_pyramid
@@ -217,7 +238,7 @@ def main() -> int:
             _cuda_ms(lambda: pose_opt._pose_optimization_plain(cam_p, *pose_args)),
         ),
     }
-    step_ms = _cuda_ms(lambda: entry.tracking_step(*state_card))
+    step_ms_mono = _cuda_ms(lambda: entry.tracking_step(*state_card))
     t0 = time.perf_counter()
     for _ in range(N_TIMED):
         entry.tracking_step(*state_card)
@@ -226,23 +247,192 @@ def main() -> int:
     for name, (k_ms, p_ms) in times.items():
         print(f"[5] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"(per frame's launches; {card})")
-    print(f"[5] tracking_step: {step_ms:.3f} ms/frame on CUDA events, "
+    print(f"[5] tracking_step: {step_ms_mono:.3f} ms/frame on CUDA events, "
           f"{step_wall_ms:.3f} ms/frame host wall ({card})")
+
+    # -- 6. the main path: one KITTI stereo frame --------------------------
+    from orb_slam2_test_tpu_torch.engine import tracking
+    from orb_slam2_test_tpu_torch.ops import stereo
+    from orb_slam2_test_tpu_torch.ops.extractor import extract_orb
+
+    kcam, kcfg = entry.KITTI_CAM, entry.KITTI_CFG
+    t0 = time.perf_counter()
+    scene = entry.kitti_scene(np.random.default_rng(SEED + 1), dev)
+    kin = entry.scene_inputs(scene, dev)
+    torch.cuda.synchronize()
+    print(f"[6] KITTI scene: {kcam.width}x{kcam.height}, {kcfg.n_features} features, "
+          f"K={kcfg.max_keyframes} P={kcfg.max_points}, {entry.KITTI_N_KF} keyframes / "
+          f"{entry.KITTI_N_PT} points live, {scene.n_scene} scene points, bitmap "
+          f"{tuple(kin[1].shape)} {kin[1].dtype} ({time.perf_counter() - t0:.1f} s set-up)")
+
+    patches.PATCH_GATHER.launches = 0
+    pose_opt_cuda.POSE_OPT.launches = 0
+    kframe, kouts = entry.track_frame_step(*kin)
+    torch.cuda.synchronize()
+    k_launches = {"patch_gather": patches.PATCH_GATHER.launches,
+                  "pose_opt": pose_opt_cuda.POSE_OPT.launches}
+    T_k = kouts[5].cpu().numpy()
+    n_inl_k, n_valid_k = int(kouts[6]), int(kframe.valid.sum())
+    stereo_k = kframe.ur.cpu().numpy() >= 0
+    t_err_k = float(np.abs(T_k[:3, 3] - scene.T_true[:3, 3]).max())
+    print(f"    launches {k_launches}; motion: {int(kouts[0])} matches, {int(kouts[1])} "
+          f"inliers; local map: {n_inl_k} inliers of {scene.n_scene} scene points, "
+          f"translation error {t_err_k:.3e} m; stereo depth on {int(stereo_k.sum())} "
+          f"of {n_valid_k} valid features; close {int(kouts[10])} tracked / "
+          f"{int(kouts[11])} untracked")
+    _check(k_launches == {"patch_gather": 32, "pose_opt": 2}, f"launches {k_launches}")
+    for i, o in enumerate(kouts):
+        _check(bool(torch.isfinite(o.float()).all()), f"output {i} not finite")
+    _check(t_err_k < 1e-2, f"KITTI translation error {t_err_k} m")
+    _check(n_inl_k >= 0.8 * scene.n_scene, f"{n_inl_k} inliers of {scene.n_scene}")
+    _check(stereo_k.sum() >= 0.5 * n_valid_k, f"stereo on {stereo_k.sum()} of {n_valid_k}")
+
+    cframe, couts = entry.track_frame_step(*entry.scene_inputs(scene, "cpu"))
+    cpu_err_k = float(np.abs(T_k - couts[5].numpy()).max())
+    stereo_c = cframe.ur.numpy() >= 0
+    n_xor = int((stereo_k ^ stereo_c).sum())
+    print(f"    vs CPU: |T - T_cpu| = {cpu_err_k:.3e}, n_inliers {n_inl_k} vs "
+          f"{int(couts[6])}, stereo-valid sets differ on {n_xor} features")
+    _check(cpu_err_k <= 1e-4, f"KITTI card vs CPU pose differs by {cpu_err_k}")
+    _check(abs(n_inl_k - int(couts[6])) <= 0.01 * max(n_inl_k, int(couts[6])),
+           f"KITTI n_inliers {n_inl_k} vs CPU {int(couts[6])}")
+    _check(n_xor <= 0.01 * kcfg.n_features, f"stereo-valid sets differ on {n_xor}")
+
+    # -- 7. both kernels on that frame's inputs ------------------------------
+    img_l, img_r = kin[2].float(), kin[3].float()
+    lp = build_pyramid(img_l, kcfg.n_levels, kcfg.scale_factor)
+    rp = build_pyramid(img_r, kcfg.n_levels, kcfg.scale_factor)
+    kw = dict(n_features=kcfg.n_features, n_levels=kcfg.n_levels,
+              scale_factor=kcfg.scale_factor)
+    fl = extract_orb(img_l, pyramid=lp, **kw)
+    fr = extract_orb(img_r, pyramid=rp, **kw)
+    max_disp = kcam.bf / (kcam.bf / kcam.width)  # as stereo_match computes it
+    _, j = stereo.associate(fl, fr, max_disp, kcfg.n_levels, kcfg.scale_factor)
+    coords = stereo.sad_coordinates(fl, fr, j, **kw)
+    frame_gathers = []  # the 32 (image, keypoints) inputs of one stereo frame
+    n_clipped = 0
+    for l, sl, inv_s, xy_l, xy_r in coords:
+        frame_gathers += [(lp[l], (fl.uv[sl] * inv_s).contiguous()),
+                          (rp[l], (fr.uv[sl] * inv_s).contiguous()),
+                          (lp[l], xy_l), (rp[l], xy_r)]
+        got = patches.extract_raw_patches_cuda(rp[l], xy_r)
+        ref = patches.extract_raw_patches_plain(rp[l], xy_r)
+        torch.cuda.synchronize()
+        _check(torch.equal(got, ref), f"patch_gather != plain on SAD level {l}")
+        h, w = rp[l].shape
+        x0 = torch.round(xy_r[:, 0]) - patches.PATCH_EX // 2
+        y0 = torch.round(xy_r[:, 1]) - patches.PATCH_EX // 2
+        n_clipped += int(((x0 < 0) | (x0 > w - patches.PATCH_EX) |
+                          (y0 < 0) | (y0 > h - patches.PATCH_EX)).sum())
+    print(f"[7] patch_gather: bit-exact on the right-image SAD coordinates of "
+          f"{len(coords)} levels ({n_clipped} of {kcfg.n_features} windows clipped "
+          f"at a border)")
+
+    m_k, bm_k = kin[0], kin[1]
+    _, _, lm_feat = tracking._local_map_matches(
+        kcam, kcfg, m_k, bm_k, kframe, kouts[2], kouts[13])
+    X_k = m_k.pt_xyz[lm_feat.clamp(min=0).long()]
+    lm_args = tracking._pose_inputs(kcfg, kframe, X_k, lm_feat >= 0)
+    n_obs = int(lm_args[3].sum())
+    n_stereo_rows = int((lm_args[3] & (lm_args[1][:, 2] >= 0)).sum())
+    k2 = pose_opt.pose_optimization(kcam, kouts[2], *lm_args)
+    k2_ref = pose_opt._pose_optimization_plain(kcam, kouts[2], *lm_args)
+    torch.cuda.synchronize()
+    pose_err_k = float((k2.Tcw - k2_ref.Tcw).abs().max())
+    agree_k = float((k2.inliers == k2_ref.inliers).float().mean())
+    print(f"    pose_opt on the local-map problem (O={lm_args[0].shape[0]}, {n_obs} "
+          f"observations, {n_stereo_rows} stereo rows): |T - plain| = "
+          f"{pose_err_k:.3e}, inlier agreement {agree_k:.4f}, |T - track| = "
+          f"{float((k2.Tcw - kouts[5]).abs().max()):.3e}")
+    _check(n_stereo_rows > 0.3 * n_obs, f"{n_stereo_rows} stereo rows of {n_obs}")
+    _check(pose_err_k <= 1e-4, f"pose_opt (KITTI) differs from plain by {pose_err_k}")
+    _check(agree_k > 0.99, f"pose_opt (KITTI) inlier agreement {agree_k}")
+    _check(torch.allclose(k2.chi2, k2_ref.chi2, rtol=1e-3, atol=1e-3),
+           "pose_opt (KITTI) chi2 differs from plain beyond rtol 1e-3")
+    pose_err = max(pose_err, pose_err_k)
+
+    # -- 8. one RGB-D frame at 640x480 / 1000 features -----------------------
+    rcfg = tracking.TrackerConfig(n_features=1000)
+    rscene = entry.tracking_scene(
+        np.random.default_rng(SEED + 2), "rgbd", entry.RGBD_CAM, rcfg, 100, 20000, dev)
+    rin = entry.scene_inputs(rscene, dev)
+    patches.PATCH_GATHER.launches = 0
+    pose_opt_cuda.POSE_OPT.launches = 0
+    rframe, routs = tracking._build_and_track_device(entry.RGBD_CAM, rcfg, "rgbd", *rin)
+    torch.cuda.synchronize()
+    r_launches = {"patch_gather": patches.PATCH_GATHER.launches,
+                  "pose_opt": pose_opt_cuda.POSE_OPT.launches}
+    _, routs_c = tracking._build_and_track_device(
+        entry.RGBD_CAM, rcfg, "rgbd", *entry.scene_inputs(rscene, "cpu"))
+    T_r = routs[5].cpu().numpy()
+    t_err_r = float(np.abs(T_r[:3, 3] - rscene.T_true[:3, 3]).max())
+    cpu_err_r = float(np.abs(T_r - routs_c[5].numpy()).max())
+    n_r, n_rc = int(routs[6]), int(routs_c[6])
+    print(f"[8] RGB-D 640x480: launches {r_launches}, {n_r} inliers of "
+          f"{rscene.n_scene} scene points, depth on {int((rframe.depth > 0).sum())} "
+          f"features, translation error {t_err_r:.3e} m; vs CPU |T - T_cpu| = "
+          f"{cpu_err_r:.3e}, n_inliers {n_r} vs {n_rc}")
+    _check(r_launches == {"patch_gather": 8, "pose_opt": 2}, f"RGB-D launches {r_launches}")
+    _check(t_err_r < 1e-2, f"RGB-D translation error {t_err_r} m")
+    _check(cpu_err_r <= 1e-4, f"RGB-D card vs CPU pose differs by {cpu_err_r}")
+    _check(abs(n_r - n_rc) <= 0.01 * max(n_r, n_rc), f"RGB-D n_inliers {n_r} vs {n_rc}")
+
+    # -- 9. KITTI timing -------------------------------------------------------
+    def gather_frame(fn):
+        return lambda: [fn(img, xy) for img, xy in frame_gathers]
+
+    times_k = {
+        "patch_gather": (_cuda_ms(gather_frame(patches.extract_raw_patches_cuda)),
+                         _cuda_ms(gather_frame(patches.extract_raw_patches_plain))),
+        "pose_opt": (
+            _cuda_ms(lambda: pose_opt.pose_optimization(kcam, kouts[2], *lm_args)),
+            _cuda_ms(lambda: pose_opt._pose_optimization_plain(kcam, kouts[2], *lm_args)),
+        ),
+    }
+    m_in, bm_in, img_a, img_b = kin[:4]
+    track_args = (m_in, bm_in, kframe) + tuple(kin[5:])
+    steps = {
+        "build_frame_stereo": lambda: build_frame_stereo(
+            img_a, img_b, 0.0, kcam, **kw),
+        "_track_frame_device": lambda: tracking._track_frame_device(
+            kcam, kcfg, *track_args),
+        "track_frame_step": lambda: entry.track_frame_step(*kin),
+    }
+    step_ms = {}
+    for name, fn in steps.items():
+        ev = _cuda_ms(fn)
+        t0 = time.perf_counter()
+        for _ in range(N_TIMED):
+            fn()
+        torch.cuda.synchronize()
+        step_ms[name] = (ev, (time.perf_counter() - t0) * 1e3 / N_TIMED)
+        print(f"[9] {name}: {ev:.3f} ms/frame on CUDA events, "
+              f"{step_ms[name][1]:.3f} ms/frame host wall ({card})")
+    for name, (k_ms, p_ms) in times_k.items():
+        print(f"[9] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
+              f"(one KITTI stereo frame's launches; {card})")
 
     kernels = [
         {"name": "patch_gather", "route": "cuda",
          "source": "orb_slam2_test_tpu_torch/csrc/patches.cu",
          "replaces": "orb_slam2_test_tpu/ops/patches.py:61",
-         "launches": launches["patch_gather"], "max_abs_err": patch_err,
-         "ms": times["patch_gather"][0], "plain_ms": times["patch_gather"][1]},
+         "launches": k_launches["patch_gather"], "max_abs_err": patch_err,
+         "ms": times_k["patch_gather"][0], "plain_ms": times_k["patch_gather"][1]},
         {"name": "pose_opt", "route": "cuda",
          "source": "orb_slam2_test_tpu_torch/csrc/pose_opt.cu",
          "replaces": "orb_slam2_test_tpu/solvers/pose_opt_pallas.py:107",
-         "launches": launches["pose_opt"], "max_abs_err": pose_err,
-         "ms": times["pose_opt"][0], "plain_ms": times["pose_opt"][1]},
+         "launches": k_launches["pose_opt"], "max_abs_err": pose_err,
+         "ms": times_k["pose_opt"][0], "plain_ms": times_k["pose_opt"][1]},
     ]
-    print(json.dumps({"kernels": kernels, "tracking_step_ms": step_ms,
-                      "tracking_step_wall_ms": step_wall_ms}))
+    print(json.dumps({
+        "kernels": kernels,
+        "launches_by_path": {"mono_tracking_step": launches,
+                             "kitti_stereo": k_launches, "rgbd": r_launches},
+        "tracking_step_ms": step_ms_mono,
+        "tracking_step_wall_ms": step_wall_ms,
+        "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
+        "kitti_stereo_wall_ms": {k: v[1] for k, v in step_ms.items()},
+    }))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,21 @@
 """Where the time of the PyTorch port's tracking step goes, on one GPU.
 
-    python3 examples/profile_torch_step.py [--steps 10] [--out runs/profile_torch_step]
+    python3 examples/profile_torch_step.py [--path mono|kitti-stereo]
+        [--steps 10] [--out runs/profile_torch_step]
 
-Runs `orb_slam2_test_tpu_torch.entry.tracking_step` (640x480 / 1000
-features / 2048 map points) under torch.profiler after a warm-up, and
-reports per step: host wall time, device busy time (the union of the
+Runs one of the port's per-frame entry points under torch.profiler after
+a warm-up:
+- mono (default): `entry.tracking_step`, 640x480 / 1000 features /
+  2048 map points;
+- kitti-stereo: `entry.track_frame_step`, the whole per-frame program
+  on one stereo frame at the KITTI configuration (1241x376 / 2000
+  features, a map of 384 keyframes and 131072 points, 200 and 110000
+  live) on `entry.kitti_scene`.
+It reports per step: host wall time, device busy time (the union of the
 kernels' intervals), the device's idle share, the number of kernel
 launches, and the kernels and operators with the most device time.
-Writes the summary to <out>/profile_torch_step.json. Needs a CUDA card;
-imports no JAX.
+Writes the summary to <out>/profile_torch_step[_kitti-stereo].json.
+Needs a CUDA card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ def _busy_us(intervals: list[tuple[float, float]]) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--path", choices=["mono", "kitti-stereo"], default="mono")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="runs/profile_torch_step")
     args = ap.parse_args()
@@ -62,16 +70,26 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     load_library()
-    img, scene, _, T_pred = entry.example_scene(np.random.default_rng(0), dev)
-    state = entry.state_from_numpy(img, *scene, T_pred, device=dev)
+    rng = np.random.default_rng(0)
+    if args.path == "mono":
+        img, scene, _, T_pred = entry.example_scene(rng, dev)
+        state = entry.state_from_numpy(img, *scene, T_pred, device=dev)
+
+        def step():
+            entry.tracking_step(*state)
+    else:
+        inputs = entry.scene_inputs(entry.kitti_scene(rng, dev), dev)
+
+        def step():
+            entry.track_frame_step(*inputs)
     for _ in range(5):
-        entry.tracking_step(*state)
+        step()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            entry.tracking_step(*state)
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / args.steps
 
@@ -91,6 +109,7 @@ def main() -> int:
         for e in table[:25] if dev_us(e) > 0
     ]
     summary = {
+        "path": args.path,
         "card": card,
         "steps": args.steps,
         "host_wall_ms_per_step": wall_ms,
@@ -100,7 +119,8 @@ def main() -> int:
         "top_device_time": top,
     }
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "profile_torch_step.json"), "w") as f:
+    suffix = "" if args.path == "mono" else "_" + args.path
+    with open(os.path.join(args.out, f"profile_torch_step{suffix}.json"), "w") as f:
         json.dump(summary, f, indent=1)
     print(json.dumps({k: v for k, v in summary.items() if k != "top_device_time"}))
     for row in top:

@@ -21,6 +21,7 @@ import torch
 
 from orb_slam2_test_tpu_torch.engine.frame import FrameData
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam2_test_tpu_torch.ops.extractor import top_k_stable
 from orb_slam2_test_tpu_torch.ops.matching import (
     TH_HIGH,
     best_two,
@@ -78,19 +79,30 @@ def search_by_projection(
     pts_xyz: torch.Tensor,  # [P, 3]
     pts_desc: torch.Tensor,  # [P, 8] int32
     pts_valid: torch.Tensor,  # [P] bool
-    pts_normal: torch.Tensor,  # [P, 3] (unused: no view-angle gate)
+    pts_normal: torch.Tensor,  # [P, 3]
     pts_mindist: torch.Tensor,  # [P]
     pts_maxdist: torch.Tensor,  # [P]
     pt_ids: torch.Tensor,  # [P] global map ids (for output labeling)
     frame: FrameData,
     radius: float = 15.0,
     max_hamming: int = TH_HIGH,
+    ratio: float = 1.0,
     scale_factor: float = 1.2,
     n_levels: int = 8,
+    check_view_cos: bool = True,
+    max_candidates: int | None = None,
 ) -> ProjectionMatch:
     """Project map points into the frame and match to nearby features
-    (reference SearchByProjection(Frame&, vector<MapPoint*>))."""
+    (reference SearchByProjection(Frame&, Frame&) for the motion model
+    and SearchByProjection(Frame&, vector<MapPoint*>) for the local map).
+
+    max_candidates: when set and smaller than P, the per-point gates run
+    over all P points, then only the first max_candidates usable points,
+    in ascending index order, enter the [C, N] descriptor matrix. A
+    stable descending sort of the usable flags picks them, as
+    jax.lax.top_k does."""
     N = frame.uv.shape[0]
+    P = pts_xyz.shape[0]
     R = Tcw[:3, :3]
     t = Tcw[:3, 3]
     Ow = -R.T @ t
@@ -102,8 +114,13 @@ def search_by_projection(
     v = cam.fy * pc[:, 1] / z_safe + cam.cy
 
     in_img = (z > 0.0) & (u >= 0) & (u < cam.width) & (v >= 0) & (v < cam.height)
-    dist = torch.linalg.norm(pts_xyz - Ow, dim=-1)
+    view = pts_xyz - Ow
+    dist = torch.linalg.norm(view, dim=-1)
     dist_ok = (dist >= pts_mindist * 0.8) & (dist <= pts_maxdist * 1.2)
+    usable = pts_valid & in_img & dist_ok
+    if check_view_cos:
+        ncos = (view * pts_normal).sum(-1) / torch.clamp(dist, min=1e-9)
+        usable = usable & (ncos > 0.5)  # reference: viewCos > 0.5 (60 deg)
 
     # predicted octave from distance (MapPoint::PredictScale); the log
     # is taken in float32 as jnp.log(scale_factor) is
@@ -118,9 +135,18 @@ def search_by_projection(
     )
     level_scale = scale_factor ** pred_level.to(torch.float32)
 
-    usable = pts_valid & in_img & dist_ok
+    sel = None
+    if max_candidates is not None and max_candidates < P:
+        # compact the usable points so the dense matrix is [C, N]
+        score, sel = top_k_stable(usable.to(torch.int32), max_candidates)
+        usable = score > 0
+        u, v = u[sel], v[sel]
+        level_scale = level_scale[sel]
+        pred_level = pred_level[sel]
+        pts_desc = pts_desc[sel]
+        pt_ids = pt_ids[sel]
 
-    # geometric masks on the [P, N] matrix
+    # geometric masks on the [C, N] matrix
     du = u[:, None] - frame.uv[None, :, 0]
     dv = v[:, None] - frame.uv[None, :, 1]
     r_eff = radius * level_scale
@@ -135,11 +161,19 @@ def search_by_projection(
     )
     d = torch.where(mask, d, 512)
 
-    best_idx, best, _ = best_two(d)
+    best_idx, best, second = best_two(d)
     ok = (best <= max_hamming) & usable
+    if ratio < 1.0:
+        ok = ok & (best.to(torch.float32) < ratio * second.to(torch.float32))
     best_feat = torch.where(ok, best_idx, -1)
 
     feat_pt, pt_feat = _resolve_conflicts(best_feat, best, N, pt_ids)
+    if sel is not None:
+        # scatter the per-candidate assignment back to [P] through a
+        # sentinel slot P that takes the unusable rows
+        buf = torch.full((P + 1,), -1, dtype=torch.int32, device=pt_feat.device)
+        buf[torch.where(usable, sel, P)] = pt_feat
+        pt_feat = buf[:P]
     return ProjectionMatch(
         feat_pt=feat_pt,
         pt_feat=pt_feat,

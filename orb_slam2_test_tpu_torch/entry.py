@@ -1,6 +1,17 @@
 """The per-frame tracking step, and the scenes that drive it.
 
-`tracking_step` is the port of `__graft_entry__.tracking_step`: ORB
+Two entry points:
+
+- `track_frame_step` runs one stereo frame through the whole per-frame
+  program, `engine.tracking._build_and_track_device(sensor="stereo")`,
+  at the KITTI configuration of the JAX package's bench (`KITTI_CAM`,
+  `KITTI_CFG`): 32 launches of kernel 1 (8 levels x left ORB, right
+  ORB, left SAD, right SAD) and 2 of kernel 2 (motion model, local map).
+  `kitti_scene` builds a stereo pair and a map at KITTI capacity that
+  the frame really observes; `bench_map` is the bench's random map
+  filling, and `map_from_numpy` carries a map given as the JAX
+  package's numpy arrays onto a device.
+- `tracking_step` is the port of `__graft_entry__.tracking_step`: ORB
 extraction, projection matching of a local map, and motion-only BA,
 the hot path that runs at frame rate. On CUDA tensors it goes through
 both hand-written kernels (8 patch-gather launches for the 8 pyramid
@@ -16,13 +27,26 @@ real; `example_scene` puts the two together on a seeded texture.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
-from orb_slam2_test_tpu_torch.engine.frame import build_frame_mono
+from orb_slam2_test_tpu_torch.engine.frame import (
+    FrameData,
+    build_frame_mono,
+    build_frame_rgbd,
+    build_frame_stereo,
+)
 from orb_slam2_test_tpu_torch.engine.matchers import search_by_projection
+from orb_slam2_test_tpu_torch.engine.tracking import (
+    TrackerConfig,
+    _build_and_track_device,
+)
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp
+from orb_slam2_test_tpu_torch.slam_map.covisibility import build_observer_bitmap
+from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState, make_empty_map
 from orb_slam2_test_tpu_torch.solvers.pose_opt import pose_optimization
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
 
@@ -36,6 +60,33 @@ N_LEVELS = 8
 # about 3 cm and 0.27 degrees
 XI_TRUE = (0.1, -0.05, 0.2, 0.02, -0.03, 0.01)
 XI_PRED_ERROR = (0.02, -0.015, 0.015, 0.003, -0.003, 0.002)
+
+# the JAX package's bench configuration (bench.py KITTI_CAM / KITTI_CFG,
+# copied: bench.py imports jax): KITTI 00-02 stereo at 1241x376, 2000
+# features, a map of 384 keyframes and 131072 points
+KITTI_CAM = PinholeCamera(
+    fx=718.856, fy=718.856, cx=607.19, cy=185.22,
+    width=1241, height=376, bf=718.856 * 0.53716,
+)
+KITTI_CFG = TrackerConfig(
+    n_features=2000,
+    max_keyframes=384,
+    max_points=131072,
+    local_pt_cap=8192,
+    ba_pt_cap=8192,
+    kf_ref_ratio=0.75,
+)
+# map occupancy of the bench, representative of mid-sequence KITTI
+KITTI_N_KF = 200
+KITTI_N_PT = 110000
+# kitti_scene's right image is the left one shifted by this many
+# pixels: a fronto-parallel plane at bf / 19 = 20.3 m
+STEREO_DISPARITY = 19
+# TUM freiburg1 RGB-D: Camera.bf of configs/TUM1.yaml
+RGBD_CAM = CAM._replace(bf=40.0)
+# depth (m) of the mono and RGB-D tracking scenes, inside RGBD_CAM's
+# close-point range (th_depth x baseline = 2.7 m)
+SCENE_DEPTH = 2.0
 
 
 def tracking_step(
@@ -59,7 +110,7 @@ def tracking_step(
         cam, Tcw_pred, pts_xyz, pts_desc, pts_valid, pts_normal,
         pts_mind, pts_maxd,
         torch.arange(P, dtype=torch.int32, device=pts_xyz.device), frame,
-        radius=15.0,
+        radius=15.0, check_view_cos=False,
     )
     has = pm.feat_pt >= 0
     X = pts_xyz[pm.feat_pt.clamp(min=0).to(torch.int64)]
@@ -208,3 +259,283 @@ def pose_problem(
     obs[idx, :2] += rng.uniform(20, 60, (n_out, 2))
     T0 = se3_exp(torch.tensor([0.05, 0.0, 0.15, 0.0, 0.0, 0.0])).numpy()
     return cam, T_true, T0, X, obs
+
+
+def bench_map(cfg: TrackerConfig, n_kf: int, n_pt: int, seed: int = 0) -> dict:
+    """The JAX package's bench map (`bench._bench_map`) as numpy arrays
+    in the JAX package's layouts (descriptors uint32), field by field
+    and draw by draw the same: the first n_kf keyframes and n_pt points
+    live, random poses, keypoints, levels and descriptors, each feature
+    linked with probability 1/2 to a random live point. Returns
+    {MapState field: array}."""
+    rng = np.random.default_rng(seed)
+    cap = cfg.map_capacity
+    K, N, P = cap.max_keyframes, cap.max_features, cap.max_points
+    m = {k: v.numpy() for k, v in make_empty_map(cap)._asdict().items()}
+    for k in ("kf_desc", "pt_desc"):
+        m[k] = m[k].view(np.uint32)
+    cam = KITTI_CAM
+    uv = np.stack(
+        [rng.uniform(20, cam.width - 20, (K, N)),
+         rng.uniform(20, cam.height - 20, (K, N))],
+        axis=-1,
+    ).astype(np.float32)
+    Tcw = np.tile(np.eye(4, dtype=np.float32), (K, 1, 1))
+    Tcw[:, 0, 3] = rng.uniform(-0.5, 0.5, K)
+    Tcw[:, 2, 3] = rng.uniform(-0.5, 0.5, K)
+    Tcw[0] = np.eye(4)
+    xyz = np.stack(
+        [rng.uniform(-20, 20, P), rng.uniform(-3, 3, P), rng.uniform(5, 40, P)],
+        axis=-1,
+    ).astype(np.float32)
+    dist = np.linalg.norm(xyz, axis=-1).astype(np.float32)
+    live_kf = np.arange(K) < n_kf
+    m.update(
+        kf_Tcw=Tcw,
+        kf_valid=live_kf,
+        kf_uv=uv,
+        kf_level=rng.integers(0, cap.n_levels, (K, N)).astype(np.int32),
+        kf_desc=rng.integers(0, 2**32, (K, N, 8), dtype=np.uint32),
+        kf_kp_valid=np.broadcast_to(live_kf[:, None], (K, N)).copy(),
+    )
+    linked = live_kf[:, None] & (rng.uniform(size=(K, N)) < 0.5)
+    m.update(
+        kf_pt_idx=np.where(linked, rng.integers(0, n_pt, (K, N)), -1).astype(np.int32),
+        kf_parent=np.maximum(np.arange(K) - 1, -1).astype(np.int32),
+        pt_xyz=xyz,
+        pt_valid=np.arange(P) < n_pt,
+        pt_desc=rng.integers(0, 2**32, (P, 8), dtype=np.uint32),
+        pt_normal=(xyz / np.maximum(dist[:, None], 1e-6)).astype(np.float32),
+        pt_min_dist=dist * np.float32(0.3),
+        pt_max_dist=dist * np.float32(3.0),
+        pt_ref_kf=rng.integers(0, n_kf, P).astype(np.int32),
+        pt_first_kf=np.zeros(P, np.int32),
+        pt_visible=np.full(P, 10.0, np.float32),
+        pt_found=np.full(P, 8.0, np.float32),
+        n_kf=np.int32(n_kf),
+        n_pt=np.int32(n_pt),
+    )
+    return m
+
+
+def _to_device(a, device) -> torch.Tensor:
+    """A numpy array (or a JAX array) as a tensor on `device`; uint32
+    descriptors become int32 bit patterns."""
+    a = np.array(a)  # a writable copy
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a).to(device)
+
+
+def map_from_numpy(m, device: torch.device | str = "cpu") -> MapState:
+    """A map given as the JAX package's numpy arrays (a mapping or a
+    NamedTuple with the MapState fields; descriptors uint32) as the
+    port's MapState on `device` (descriptors viewed as int32)."""
+    get = m.__getitem__ if isinstance(m, dict) else lambda f: getattr(m, f)
+    return MapState(*[_to_device(get(f), device) for f in MapState._fields])
+
+
+def frame_from_numpy(f, device: torch.device | str = "cpu") -> FrameData:
+    """A frame given as numpy arrays (descriptors uint32 or int32) as
+    the port's FrameData on `device`."""
+    return FrameData(*[_to_device(getattr(f, k), device) for k in FrameData._fields])
+
+
+class TrackScene(NamedTuple):
+    """A frame and a map that observes it, as numpy arrays in the JAX
+    package's layouts (descriptors uint32), with the tracking inputs of
+    the frame that follows the map's keyframe 0:
+
+    img_a, img_b  the image (left for stereo) and the right image (stereo,
+                  uint8) or depth map (RGB-D, float32 m); img_b is None
+                  for mono
+    map           {MapState field: array}
+    vel, T_cr     constant-velocity motion and the last frame's pose
+                  relative to keyframe 0; vel @ T_cr @ kf_Tcw[0] is off
+                  T_true by XI_PRED_ERROR
+    last_feat_pt  [N] the last frame's feature -> point links (a subset)
+    last_frame    the frame itself (FrameData of numpy arrays)
+    ref_kf, close_depth, T_true
+    n_scene       the number of scene points, in point slots 0..n_scene-1
+    """
+
+    img_a: np.ndarray
+    img_b: np.ndarray | None
+    map: dict
+    vel: np.ndarray
+    T_cr: np.ndarray
+    last_feat_pt: np.ndarray
+    last_frame: FrameData
+    ref_kf: int
+    close_depth: float
+    T_true: np.ndarray
+    n_scene: int
+
+
+def _depth_map(rng: np.random.Generator, h: int, w: int, z0: float) -> np.ndarray:
+    """Seeded RGB-D depth [h, w] float32 in metres: a plane at z0 with
+    eight rectangles 0.5-2 m further away (their edges exercise the
+    depth-spread gate) and a few holes (depth 0)."""
+    d = np.full((h, w), z0, np.float32)
+    for _ in range(8):
+        y0, x0 = rng.integers(0, h - 40), rng.integers(0, w - 40)
+        dh, dw = rng.integers(30, h // 3), rng.integers(30, w // 3)
+        d[y0 : y0 + dh, x0 : x0 + dw] = z0 + rng.uniform(0.5, 2.0)
+    for _ in range(4):
+        y0, x0 = rng.integers(0, h - 20), rng.integers(0, w - 20)
+        d[y0 : y0 + 20, x0 : x0 + 20] = 0.0
+    return d
+
+
+def tracking_scene(
+    rng: np.random.Generator,
+    sensor: str,
+    cam: PinholeCamera,
+    cfg: TrackerConfig,
+    n_kf: int,
+    n_pt: int,
+    device: torch.device | str = "cpu",
+    disparity: int = STEREO_DISPARITY,
+) -> TrackScene:
+    """A seeded texture seen from T_true, and a map that observes it.
+
+    stereo: the right image is the left shifted by `disparity` pixels,
+    right[:, x] = left[:, x + disparity] with the last column repeated,
+    so every pixel lies on a fronto-parallel plane at bf / disparity.
+    rgbd: a seeded depth map (`_depth_map`) around SCENE_DEPTH. mono: a
+    plane at SCENE_DEPTH.
+
+    The frame is built on `device` and its valid keypoints become point
+    slots 0..k-1 of a `bench_map` filling, back-projected at their true
+    depth from T_true, each with its keypoint's descriptor and with the
+    normal and distance range of MapPoint::UpdateNormalAndDepth (as in
+    `consistent_scene`). Keyframe 0 holds T_true and the frame's
+    keypoints, its features linked to those points; the bench's random
+    keyframes may link them too. The last frame is the frame itself, but
+    it links only every second scene point, as if it had lost the
+    others: motion-model tracking matches those (and, with depth,
+    temporary points for the rest), and local-map tracking must find
+    the others again through keyframe 0."""
+    h, w = cam.height, cam.width
+    img = texture_image(rng, h, w)
+    img_t = torch.from_numpy(img).to(device)
+    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
+              scale_factor=cfg.scale_factor)
+    if sensor == "stereo":
+        img_b = np.ascontiguousarray(img[:, np.minimum(np.arange(w) + disparity, w - 1)])
+        true_depth = np.full((h, w), cam.bf / disparity, np.float32)
+        frame = build_frame_stereo(img_t, _to_device(img_b, device), 0.0, cam, **kw)
+    elif sensor == "rgbd":
+        img_b = true_depth = _depth_map(rng, h, w, SCENE_DEPTH)
+        frame = build_frame_rgbd(img_t, _to_device(img_b, device), 0.0, cam, **kw)
+    elif sensor == "mono":
+        img_b = None
+        true_depth = np.full((h, w), SCENE_DEPTH, np.float32)
+        frame = build_frame_mono(img_t, 0.0, cam, **kw)
+    else:
+        raise ValueError(f"sensor must be mono, stereo or rgbd, got {sensor!r}")
+    frame = FrameData(*[x.cpu().numpy() for x in frame])
+    frame = frame._replace(desc=frame.desc.view(np.uint32))
+
+    T_true = se3_exp(torch.tensor(XI_TRUE)).numpy()
+    m = bench_map(cfg, n_kf, n_pt, seed=int(rng.integers(2**31)))
+    uv = frame.uv.astype(np.float64)
+    xi = np.clip(np.round(frame.uv_raw[:, 0]).astype(int), 0, w - 1)
+    yi = np.clip(np.round(frame.uv_raw[:, 1]).astype(int), 0, h - 1)
+    z = true_depth[yi, xi].astype(np.float64)
+    idx = np.flatnonzero(frame.valid & (z > 0))[:n_pt]
+    k = idx.size
+    pc = np.stack(
+        [(uv[idx, 0] - cam.cx) / cam.fx * z[idx],
+         (uv[idx, 1] - cam.cy) / cam.fy * z[idx], z[idx]],
+        axis=1,
+    )
+    R, t = T_true[:3, :3].astype(np.float64), T_true[:3, 3].astype(np.float64)
+    Xw = (pc - t) @ R  # R^T (pc - t), row-wise
+    view = Xw + R.T @ t  # Xw - Ow with Ow = -R^T t
+    dist = np.linalg.norm(view, axis=1)
+    maxd = dist * cfg.scale_factor ** frame.level[idx].astype(np.float64)
+
+    m["pt_xyz"][:k] = Xw
+    m["pt_desc"][:k] = frame.desc[idx]
+    m["pt_normal"][:k] = view / dist[:, None]
+    m["pt_max_dist"][:k] = maxd
+    m["pt_min_dist"][:k] = maxd / cfg.scale_factor ** (cfg.n_levels - 1)
+    m["pt_valid"][:k] = True
+    m["pt_ref_kf"][:k] = 0
+    links = np.full(cfg.n_features, -1, np.int32)
+    links[idx] = np.arange(k, dtype=np.int32)
+    m["kf_Tcw"][0] = T_true
+    for f in ("uv", "level", "angle", "ur", "depth", "desc"):
+        m["kf_" + f][0] = getattr(frame, f)
+    m["kf_kp_valid"][0] = frame.valid
+    m["kf_pt_idx"][0] = links
+    m["kf_valid"][0] = True
+    last_links = np.full(cfg.n_features, -1, np.int32)
+    last_links[idx[::2]] = links[idx[::2]]
+
+    vel = se3_exp(torch.tensor(XI_PRED_ERROR)).numpy()
+    return TrackScene(
+        img_a=img, img_b=img_b, map=m, vel=vel,
+        T_cr=np.eye(4, dtype=np.float32), last_feat_pt=last_links, last_frame=frame,
+        ref_kf=0, close_depth=float(cfg.th_depth * cam.baseline),
+        T_true=T_true, n_scene=k,
+    )
+
+
+def kitti_scene(
+    rng: np.random.Generator,
+    device: torch.device | str = "cpu",
+    cfg: TrackerConfig = KITTI_CFG,
+    n_kf: int = KITTI_N_KF,
+    n_pt: int = KITTI_N_PT,
+    disparity: int = STEREO_DISPARITY,
+) -> TrackScene:
+    """The stereo `tracking_scene` at KITTI geometry (1241x376, 2000
+    features), by default at the bench's capacity and occupancy."""
+    return tracking_scene(
+        rng, "stereo", KITTI_CAM, cfg, n_kf, n_pt, device, disparity=disparity
+    )
+
+
+def scene_inputs(scene: TrackScene, device: torch.device | str = "cpu") -> tuple:
+    """The scene on `device`, as the arguments of `track_frame_step` and
+    of `_build_and_track_device` after (cam, cfg, sensor): (m, obs_bm,
+    img_a, img_b, timestamp, vel, T_cr, last_feat_pt, last_frame,
+    ref_kf, close_depth). The observer bitmap is built on the device."""
+    m = map_from_numpy(scene.map, device)
+    img_b = None if scene.img_b is None else _to_device(scene.img_b, device)
+    return (
+        m, build_observer_bitmap(m), _to_device(scene.img_a, device), img_b, 0.0,
+        _to_device(scene.vel.astype(np.float32), device),
+        _to_device(scene.T_cr, device), _to_device(scene.last_feat_pt, device),
+        frame_from_numpy(scene.last_frame, device),
+        torch.tensor(scene.ref_kf, dtype=torch.int32, device=device),
+        scene.close_depth,
+    )
+
+
+def track_frame_step(
+    m: MapState,
+    obs_bm: torch.Tensor,
+    img_left: torch.Tensor,
+    img_right: torch.Tensor,
+    timestamp: float,
+    vel: torch.Tensor,
+    T_cr: torch.Tensor,
+    last_feat_pt: torch.Tensor,
+    last_frame: FrameData,
+    ref_kf: torch.Tensor,
+    close_depth: float,
+    cam: PinholeCamera = KITTI_CAM,
+    cfg: TrackerConfig = KITTI_CFG,
+) -> tuple[FrameData, tuple[torch.Tensor, ...]]:
+    """One stereo frame through the whole per-frame program at KITTI:
+    frame build, motion-model tracking, local-map tracking, close counts
+    (the JAX bench's `track_one`). Returns (frame, the 17 outputs of
+    `_track_frame_device`)."""
+    f32_matmuls()
+    return _build_and_track_device(
+        cam, cfg, "stereo", m, obs_bm, img_left, img_right, timestamp, vel,
+        T_cr, last_feat_pt, last_frame, ref_kf, close_depth,
+    )

@@ -1,4 +1,4 @@
-"""Pinhole camera: projection and undistortion.
+"""Pinhole camera: projection, back-projection and undistortion.
 
 Port of orb_slam2_test_tpu/geometry/camera.py (reference: src/Frame.cc
 UndistortKeyPoints). Conventions are the same: Tcw maps world to
@@ -37,6 +37,10 @@ class PinholeCamera(NamedTuple):
             for d in (self.k1, self.k2, self.p1, self.p2, self.k3)
         )
 
+    @property
+    def baseline(self) -> float:
+        return self.bf / self.fx if self.bf else 0.0
+
 
 def project(
     cam: PinholeCamera, x_cam: torch.Tensor
@@ -47,6 +51,27 @@ def project(
     u = cam.fx * x_cam[..., 0] * inv_z + cam.cx
     v = cam.fy * x_cam[..., 1] * inv_z + cam.cy
     return torch.stack([u, v], dim=-1), z
+
+
+def project_stereo(
+    cam: PinholeCamera, x_cam: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame points [..., 3] -> (uvr [..., 3] = (u, v, u_right),
+    depth [...]), with u_right = u - bf / z."""
+    uv, z = project(cam, x_cam)
+    inv_z = 1.0 / torch.where(z.abs() > 1e-9, z, 1e-9)
+    ur = uv[..., 0] - cam.bf * inv_z
+    return torch.cat([uv, ur[..., None]], dim=-1), z
+
+
+def backproject(
+    cam: PinholeCamera, uv: torch.Tensor, depth: torch.Tensor
+) -> torch.Tensor:
+    """Undistorted pixels [..., 2] + depth [...] -> camera-frame points
+    [..., 3] (reference Frame::UnprojectStereo)."""
+    x = (uv[..., 0] - cam.cx) / cam.fx * depth
+    y = (uv[..., 1] - cam.cy) / cam.fy * depth
+    return torch.stack([x, y, depth], dim=-1)
 
 
 def undistort_points(

@@ -97,6 +97,17 @@ def se3_project(T: torch.Tensor) -> torch.Tensor:
     return rt_to_mat(so3_project(T[..., :3, :3]), T[..., :3, 3])
 
 
+def se3_inverse(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid transform without generic matrix inversion."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return rt_to_mat(Rt, -(Rt @ T[..., :3, 3:])[..., 0])
+
+
+def se3_compose(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """A @ B for homogeneous transforms (broadcasting matmul)."""
+    return A @ B
+
+
 def se3_apply(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Apply T [..., 4, 4] to points x [..., 3]."""
     R = T[..., :3, :3]

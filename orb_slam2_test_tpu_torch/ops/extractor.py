@@ -66,7 +66,7 @@ def level_feature_budget(
     return counts
 
 
-def _top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+def top_k_stable(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top k along the last axis, ties lowest index first (jax.lax.top_k)."""
     vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
@@ -90,12 +90,12 @@ def _select_level_keypoints(
     cells = cells.reshape(ncy * ncx, CELL * CELL)
 
     # per-cell top candidates, rank = position in the cell's ordering
-    cvals, cidx = _top_k_stable(cells, CANDS_PER_CELL)  # [nc, cands]
+    cvals, cidx = top_k_stable(cells, CANDS_PER_CELL)  # [nc, cands]
     rank = torch.arange(CANDS_PER_CELL, dtype=torch.float32, device=score.device)
     neg_inf = torch.full((), -torch.inf, dtype=score.dtype, device=score.device)
     key = torch.where(cvals > 0.0, cvals - rank * RANK_PENALTY, neg_inf)
 
-    top_keys, flat_pos = _top_k_stable(key.reshape(-1), n_keep)
+    top_keys, flat_pos = top_k_stable(key.reshape(-1), n_keep)
     cell_id = flat_pos // CANDS_PER_CELL
     slot = flat_pos % CANDS_PER_CELL
     inner = cidx[cell_id, slot]  # position within the cell
@@ -116,10 +116,12 @@ def extract_orb(
     scale_factor: float = 1.2,
     ini_th: float = 20.0,
     min_th: float = 7.0,
+    pyramid: list[torch.Tensor] | None = None,
 ) -> Features:
     """Full ORB extraction on a float32 [H, W] grayscale image (0..255),
-    with keypoints in level-0 pixel coordinates."""
-    pyr = build_pyramid(img, n_levels, scale_factor)
+    with keypoints in level-0 pixel coordinates. A caller that needs the
+    pyramid too (the stereo frame) builds it once and passes it in."""
+    pyr = pyramid if pyramid is not None else build_pyramid(img, n_levels, scale_factor)
     budgets = level_feature_budget(n_features, n_levels, scale_factor)
 
     outs = {k: [] for k in Features._fields}

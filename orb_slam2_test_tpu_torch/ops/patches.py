@@ -35,6 +35,7 @@ from orb_slam2_test_tpu_torch.ops.brief import (
 from orb_slam2_test_tpu_torch.utils.cuda_build import CudaKernel, stream_ptr
 
 PATCH_EX = 38  # 32-px descriptor core + 3-px blur margin each side
+CORE_OFF = 3  # core starts at (3, 3); core center = raw center (19, 19)
 BLUR_SIGMA = 2.0
 BLUR_K = 7
 

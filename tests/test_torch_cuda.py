@@ -6,8 +6,13 @@ machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 
-Kernel 1 is a copy, held bit-exact; kernel 2 sums in another order than
-the plain PyTorch loop, held to pose atol 1e-4 and chi2 rtol 1e-3.
+Kernel 1 is a copy, held bit-exact, also on the stereo SAD coordinates
+of a KITTI frame (right candidates scaled to the left keypoint's level,
+some clipped at the border); kernel 2 sums in another order than the
+plain PyTorch loop, held to pose atol 1e-4 and chi2 rtol 1e-3, also at
+O = 2000 with half stereo rows. `_track_frame_device` on the card is
+held to the port on the CPU on the same frame: poses atol 1e-4, counts
+within 1%, links equal on >= 99% of the features.
 """
 
 import numpy as np
@@ -102,3 +107,76 @@ def test_tracking_step_launches_each_kernel(dev):
     assert pose_opt_cuda.POSE_OPT.launches == 1
     assert np.abs(Tcw.cpu().numpy() - T_true)[:3, 3].max() < 1e-2
     assert int(n_inl) >= 0.8 * scene[2].sum()
+
+
+def _kitti_small(dev, seed):
+    """A stereo KITTI-geometry scene with a reduced map (K = 48,
+    P = 16384), built on the card."""
+    import dataclasses
+
+    cfg = dataclasses.replace(entry.KITTI_CFG, max_keyframes=48, max_points=16384)
+    return cfg, entry.kitti_scene(np.random.default_rng(seed), dev, cfg, 40, 12000)
+
+
+def test_patch_gather_on_stereo_sad_coordinates(dev):
+    from orb_slam2_test_tpu_torch.ops import stereo
+    from orb_slam2_test_tpu_torch.ops.extractor import extract_orb
+
+    cfg, scene = _kitti_small(dev, 4)
+    cam = entry.KITTI_CAM
+    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
+              scale_factor=cfg.scale_factor)
+    left = torch.from_numpy(scene.img_a).to(dev).float()
+    right = torch.from_numpy(scene.img_b).to(dev).float()
+    lp, rp = build_pyramid(left, 8, 1.2), build_pyramid(right, 8, 1.2)
+    fl = extract_orb(left, pyramid=lp, **kw)
+    fr = extract_orb(right, pyramid=rp, **kw)
+    _, j = stereo.associate(fl, fr, float(cam.width), 8, 1.2)
+    n_clipped = 0
+    for l, _, _, xy_l, xy_r in stereo.sad_coordinates(fl, fr, j, **kw):
+        for img, xy in ((lp[l], xy_l), (rp[l], xy_r)):
+            got = patches.extract_raw_patches(img, xy)
+            assert torch.equal(got, patches.extract_raw_patches_plain(img, xy))
+        x0 = torch.round(xy_r[:, 0]) - 19
+        n_clipped += int(((x0 < 0) | (x0 > rp[l].shape[1] - 38)).sum())
+    assert n_clipped > 0  # windows clipped at the border are among them
+
+
+def test_pose_opt_with_stereo_rows_at_kitti_width(dev):
+    cam, T_true, T0, X, obs = entry.pose_problem(
+        np.random.default_rng(5), 2000, stereo_frac=0.5
+    )
+    args = (cam, torch.from_numpy(T0).to(dev), torch.from_numpy(X).to(dev),
+            torch.from_numpy(obs).to(dev), torch.ones(2000, device=dev),
+            torch.ones(2000, dtype=torch.bool, device=dev))
+    assert 900 < (obs[:, 2] >= 0).sum() <= 1000  # about half stereo rows
+    got = pose_opt.pose_optimization(*args)
+    ref = pose_opt._pose_optimization_plain(*args)
+    torch.testing.assert_close(got.Tcw, ref.Tcw, atol=1e-4, rtol=0)
+    assert (got.inliers == ref.inliers).float().mean() > 0.99
+    torch.testing.assert_close(got.chi2, ref.chi2, rtol=1e-3, atol=1e-3)
+
+
+def test_track_frame_device_matches_cpu(dev):
+    from orb_slam2_test_tpu_torch.engine import tracking
+
+    cfg, scene = _kitti_small(dev, 6)
+    cam = entry.KITTI_CAM
+    outs = {}
+    for where in (dev, "cpu"):
+        a = entry.scene_inputs(scene, where)
+        patches.PATCH_GATHER.launches = 0
+        pose_opt_cuda.POSE_OPT.launches = 0
+        outs[str(where)] = [x.cpu() for x in tracking._track_frame_device(
+            cam, cfg, a[0], a[1], a[8], *a[5:])]
+        launches = (patches.PATCH_GATHER.launches, pose_opt_cuda.POSE_OPT.launches)
+        assert launches == ((0, 2) if where == dev else (0, 0))
+    card, cpu = outs[str(dev)], outs["cpu"]
+    for i in (2, 5, 9, 12):  # poses
+        torch.testing.assert_close(card[i], cpu[i], atol=1e-4, rtol=0)
+    for i in (0, 1, 6, 14):  # counts
+        assert abs(int(card[i]) - int(cpu[i])) <= 0.01 * int(cpu[i])
+    for i in (7, 13):  # links
+        assert (card[i] == cpu[i]).float().mean() >= 0.99
+    assert int(card[4]) == int(cpu[4]) == 0
+    assert np.abs(card[5].numpy() - scene.T_true)[:3, 3].max() < 1e-2

@@ -79,6 +79,34 @@ def test_project(rng):
     np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
 
 
+def test_se3_inverse_and_compose(rng):
+    A = np.asarray(jse3.se3_exp(jnp.asarray(rng.normal(size=(16, 6)), jnp.float32)))
+    B = np.asarray(jse3.se3_exp(jnp.asarray(rng.normal(size=(16, 6)), jnp.float32)))
+    j, t = _both("se3_inverse", A)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    np.testing.assert_allclose(t @ A, np.broadcast_to(np.eye(4), A.shape), atol=ATOL)
+    j, t = _both("se3_compose", A, B)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+
+
+def test_project_stereo_and_backproject(rng):
+    kw = dict(fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241,
+              height=376, bf=718.856 * 0.53716)
+    jc, tc = jcam.PinholeCamera(**kw), tcam.PinholeCamera(**kw)
+    assert tc.baseline == jc.baseline and tcam.PinholeCamera(1, 1, 0, 0).baseline == 0.0
+    pc = np.concatenate(
+        [rng.uniform(-3, 3, (50, 2)), rng.uniform(0.5, 40, (50, 1))], 1
+    ).astype(np.float32)
+    juvr, jz = jcam.project_stereo(jc, jnp.asarray(pc))
+    tuvr, tz = tcam.project_stereo(tc, torch.from_numpy(pc))
+    np.testing.assert_allclose(tuvr.numpy(), np.asarray(juvr), rtol=1e-6, atol=1e-4)
+    np.testing.assert_array_equal(tz.numpy(), np.asarray(jz))
+    j = jcam.backproject(jc, juvr[:, :2], jz)
+    t = tcam.backproject(tc, tuvr[:, :2], tz)
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+    np.testing.assert_allclose(t.numpy(), pc, rtol=1e-5, atol=1e-4)
+
+
 def test_undistort_points(rng):
     # configs/TUM1.yaml's distortion, the strongest the repo ships
     kw = dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,

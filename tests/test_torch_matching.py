@@ -136,8 +136,57 @@ def test_search_by_projection(rng, real_frame, kind):
     t = tm.search_by_projection(
         TCam(**CAM_KW), args[7], *args[1:7],
         torch.arange(n_pts, dtype=torch.int32), tframe, radius=15.0,
+        check_view_cos=False,
     )
     np.testing.assert_array_equal(t.feat_pt.numpy(), np.asarray(j.feat_pt))
     np.testing.assert_array_equal(t.pt_feat.numpy(), np.asarray(j.pt_feat))
     assert int(t.n_matches) == int(j.n_matches)
     assert int(t.n_matches) > 0.5 * frame.valid.sum()
+
+
+@pytest.mark.parametrize("kind", ["real", "synthetic_dup"])
+@pytest.mark.parametrize("max_candidates", [None, 120])
+def test_search_by_projection_local_map_settings(rng, real_frame, kind, max_candidates):
+    """The local-map settings: view-angle gate, ratio 0.8 and the
+    compaction of the usable points into max_candidates < P rows. A
+    third of the normals face away (the view gate drops them), a tenth
+    of the points are invalid, and duplicated descriptors make exact
+    ties for the ratio test; the compaction keeps the first usable
+    points in index order."""
+    frame = real_frame if kind == "real" else _synthetic_frame(rng, dup=True)
+    n_pts = 512
+    T_true = np.asarray(se3_exp(jnp.asarray([0.05, -0.02, 0.1, 0.01, -0.02, 0.005])))
+    scene = list(consistent_scene(rng, frame, TCam(**CAM_KW), n_pts, T_true))
+    k = int(scene[2].sum())
+    away = rng.random(n_pts) < 0.33
+    scene[3] = np.where(away[:, None], -scene[3], scene[3]).astype(np.float32)
+    scene[2] = scene[2] & (rng.random(n_pts) > 0.1)
+    T_pred = np.asarray(
+        se3_exp(jnp.asarray([0.02, 0.01, -0.02, 0.003, 0.002, -0.004]))
+    ) @ T_true
+    args = state_from_numpy(np.zeros((H, W), np.uint8), *scene, T_pred)
+    pt_ids = rng.permutation(4 * n_pts)[:n_pts].astype(np.int32)
+    kw = dict(radius=3.0, ratio=0.8, max_candidates=max_candidates)
+
+    j = jm.search_by_projection(
+        JCam(**CAM_KW), jnp.asarray(T_pred, jnp.float32),
+        *[jnp.asarray(a) for a in scene], jnp.asarray(pt_ids),
+        JFrame(*[jnp.asarray(x) for x in frame]), **kw,
+    )
+    tframe = TFrame(*[torch.from_numpy(np.array(x)) for x in frame])
+    tframe = tframe._replace(desc=_t_desc(frame.desc))
+    t = tm.search_by_projection(
+        TCam(**CAM_KW), args[7], *args[1:7], torch.from_numpy(pt_ids), tframe, **kw,
+    )
+    np.testing.assert_array_equal(t.feat_pt.numpy(), np.asarray(j.feat_pt))
+    np.testing.assert_array_equal(t.pt_feat.numpy(), np.asarray(j.pt_feat))
+    assert int(t.n_matches) == int(j.n_matches)
+    # the gates bite: fewer matches than usable points, and with the
+    # compaction only points among the first usable ones match
+    n = int(t.n_matches)
+    assert 0 < n < 0.9 * k
+    matched = np.flatnonzero(t.pt_feat.numpy() >= 0)
+    assert not away[matched].any()
+    if max_candidates is not None:
+        assert (scene[2] & ~away).sum() > max_candidates  # the cut is real
+        assert matched.max() < k and n <= max_candidates

@@ -105,7 +105,7 @@ def test_port_never_imports_jax():
         "import orb_slam2_test_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
-        "print(len(names), 'jax' in sys.modules, "
+        "print(','.join(names), 'jax' in sys.modules, "
         "any(m.startswith('orb_slam2_test_tpu.') for m in sys.modules))\n"
     )
     out = subprocess.run(
@@ -113,8 +113,12 @@ def test_port_never_imports_jax():
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    n, has_jax, has_jax_pkg = out.stdout.split()
-    assert int(n) >= 20  # every subpackage and module was imported
+    names, has_jax, has_jax_pkg = out.stdout.split()
+    names = set(names.split(","))
+    assert len(names) >= 27  # every subpackage and module was imported
+    for mod in ("ops.stereo", "slam_map.mapstate", "slam_map.covisibility",
+                "engine.tracking", "engine.frame", "entry"):
+        assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
 
 
