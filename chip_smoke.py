@@ -5,12 +5,12 @@
 Drives the port's per-frame tracking through its two hand-written CUDA
 kernels and checks each kernel and each path against their plain
 PyTorch versions: the mono step of slice 1 (640x480 / 1000 features /
-a 2048-point local map), and the whole per-frame program
+a 2048-point local map), the whole per-frame program
 (`entry.track_frame_step`: stereo frame build, motion-model tracking,
-local-map tracking, keyframe-decision counts) at the KITTI
-configuration, 1241x376 / 2000 features / a map of 384 keyframes and
-131072 points, 200 and 110000 of them live. Phases, each of which
-raises on a failed check:
+local-map tracking, keyframe-decision counts) and the keyframe
+insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
+/ 2000 features / a map of 384 keyframes and 131072 points, 200 and
+110000 of them live. Phases, each of which raises on a failed check:
 
 1. build both kernels from orb_slam2_test_tpu_torch/csrc (nvcc, sm_90a);
 2. patch_gather vs its plain version on all 8 pyramid levels: bit-exact;
@@ -39,7 +39,26 @@ raises on a failed check:
    1e-4 and 1% of the inliers;
 9. KITTI timing, CUDA events (median of 30 after warm-up) and host wall:
    build_frame_stereo, _track_frame_device and track_frame_step, and
-   each kernel on that frame's inputs against its plain version.
+   each kernel on that frame's inputs against its plain version;
+10. keyframe insertion on the main path, at full capacity on
+   `entry.kitti_insert_scene` (four bands at 20-48 m, views 1.07 m
+   apart): track view 1 -> full insert (`grow_map_step`, rebuild) ->
+   track view 2 against the grown map -> light insert. Each tracked
+   frame makes exactly 32 + 2 launches and lands within 1 cm of its true
+   pose; the inserts launch neither kernel; the full insert creates
+   points beyond its 100 depth points (triangulation); the caller's map
+   and bitmap are unchanged; n_kf counts the live keyframes and no live
+   link points at a dead slot; the full insert's bitmap has the
+   incidence of `build_observer_bitmap` of its map; the first insert
+   runs again under torch.cuda.set_sync_debug_mode("error") (no host
+   sync); the same sequence on the CPU agrees: kf ids and culled equal,
+   n_pt within 1%, live poses within 2e-3, links >= 99% equal;
+11. insertion timing at the JAX bench's inputs (the bench map at 200 /
+   110000, a frame of two random images, T = I, random links,
+   frame id 99): a full and a light insert, in turns, CUDA events and
+   host wall (medians of 20 after warm-up), and the amortized KITTI ms/frame,
+   track_frame_step + (full + 3 light) / 4 / KF_EVERY with KF_EVERY
+   read from runs/kitti00_full/summary.json.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -49,6 +68,7 @@ line is the JSON object {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -113,6 +133,7 @@ def main() -> int:
     from orb_slam2_test_tpu_torch.utils import cuda_build
     from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     f32_matmuls()
     rng = np.random.default_rng(SEED)
@@ -412,6 +433,154 @@ def main() -> int:
         print(f"[9] {name}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms "
               f"(one KITTI stereo frame's launches; {card})")
 
+    # -- 10. keyframe insertion on the main path ---------------------------
+    from orb_slam2_test_tpu_torch.slam_map.covisibility import build_observer_bitmap
+
+    def counts():
+        return {"patch_gather": patches.PATCH_GATHER.launches,
+                "pose_opt": pose_opt_cuda.POSE_OPT.launches}
+
+    def zero():
+        patches.PATCH_GATHER.launches = 0
+        pose_opt_cuda.POSE_OPT.launches = 0
+
+    iscene = entry.kitti_insert_scene(np.random.default_rng(SEED + 1), dev)
+
+    def insert_sequence(device):
+        """track view 1 -> full insert -> track view 2 -> light insert,
+        with the launch counts of each step."""
+        m0 = entry.map_from_numpy(iscene.map, device)
+        bm0 = build_observer_bitmap(m0)
+        steps, launches = {}, {}
+        zero()
+        steps["track1"] = entry.track_insert_view(
+            iscene, 1, m0, bm0, entry.frame_from_numpy(iscene.last_frame, device),
+            torch.from_numpy(iscene.last_feat_pt).to(device),
+            torch.zeros((), dtype=torch.int32, device=device))
+        launches["track1"] = counts()
+        f1, o1 = steps["track1"]
+        zero()
+        steps["full"] = entry.grow_map_step(
+            m0, bm0, f1, o1[5], o1[7], 1.0, 1, iscene.close_depth, True)
+        launches["full"] = counts()
+        g1 = steps["full"]
+        zero()
+        steps["track2"] = entry.track_insert_view(iscene, 2, g1[0], g1[4], f1, o1[7], g1[1])
+        launches["track2"] = counts()
+        f2, o2 = steps["track2"]
+        zero()
+        steps["light"] = entry.grow_map_step(
+            g1[0], g1[4], f2, o2[5], o2[7], 2.0, 2, iscene.close_depth, False)
+        launches["light"] = counts()
+        return (m0, bm0), steps, launches
+
+    (m0, bm0), seq, ins_launches = insert_sequence(dev)
+    torch.cuda.synchronize()
+    print(f"[10] insert scene: {iscene.n_scene} points of view 0 in the bench map, "
+          f"launches {ins_launches}")
+    for step, want in (("track1", 34), ("full", 0), ("track2", 34), ("light", 0)):
+        got = ins_launches[step]
+        _check((got == {"patch_gather": 32, "pose_opt": 2}) if want else
+               (got == {"patch_gather": 0, "pose_opt": 0}), f"{step} launches {got}")
+    for i, step in ((1, "track1"), (2, "track2")):
+        T = seq[step][1][5].cpu().numpy()
+        err = float(np.abs(T[:3, 3] - iscene.T_true[i][:3, 3]).max())
+        print(f"    {step}: {int(seq[step][1][6])} inliers, translation error {err:.3e} m")
+        _check(err < 1e-2, f"{step} translation error {err} m")
+    g1, g2 = seq["full"], seq["light"]
+    n_before = int(iscene.map["n_pt"])
+    created = int((g1[0].pt_valid & (g1[0].pt_first_kf == 1)).sum())
+    print(f"    full insert: kf {int(g1[1])}, culled {int(g1[2])}, n_pt {n_before} -> "
+          f"{int(g1[3])}, {created} points created (at most 100 from depth, so >= "
+          f"{created - 100} triangulated); light insert: kf {int(g2[1])}, n_pt {int(g2[3])}")
+    _check(created > 100, f"the full insert created {created} points: none triangulated")
+    fresh = entry.map_from_numpy(iscene.map, dev)
+    for name, a, b in zip(m0._fields, m0, fresh):
+        _check(torch.equal(a, b), f"the inserts changed their input map: {name}")
+    _check(torch.equal(bm0, build_observer_bitmap(fresh)), "the inserts changed their input bitmap")
+    for name, g in (("full", g1), ("light", g2)):
+        m = g[0]
+        _check(int(m.n_kf) == int(m.kf_valid.sum()), f"{name}: n_kf != live keyframes")
+        idx = m.kf_pt_idx[m.kf_valid]
+        _check(bool(m.pt_valid[idx[idx >= 0].long()].all()), f"{name}: a link to a dead slot")
+    _check(torch.equal(g1[4] > 0, build_observer_bitmap(g1[0]) > 0),
+           "full insert's bitmap != build_observer_bitmap of its map")
+
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = entry.grow_map_step(m0, bm0, seq["track1"][0], seq["track1"][1][5],
+                                    seq["track1"][1][7], 1.0, 1, iscene.close_depth, True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check(int(again[1]) == int(g1[1]), "the insert under sync debug mode differs")
+    print("    the full insert ran again under set_sync_debug_mode('error'): no host sync")
+
+    _, cseq, _ = insert_sequence("cpu")
+    for name in ("full", "light"):
+        a, b = seq[name], cseq[name]
+        A, B = entry.map_to_numpy(a[0]), entry.map_to_numpy(b[0])
+        live = A["kf_valid"]
+        pose_err = float(np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max())
+        linked = (A["kf_pt_idx"] >= 0) | (B["kf_pt_idx"] >= 0)
+        links = float((A["kf_pt_idx"] == B["kf_pt_idx"])[linked].mean())
+        print(f"    {name} vs CPU: kf {int(a[1])}/{int(b[1])}, culled {int(a[2])}/{int(b[2])}, "
+              f"n_pt {int(a[3])}/{int(b[3])}, live poses within {pose_err:.3e}, "
+              f"links equal {links:.5f}")
+        _check(int(a[1]) == int(b[1]) and int(a[2]) == int(b[2]), f"{name}: kf ids vs CPU")
+        _check(abs(int(a[3]) - int(b[3])) <= 0.01 * int(b[3]), f"{name}: n_pt vs CPU")
+        _check(pose_err <= 2e-3, f"{name}: poses differ from the CPU by {pose_err}")
+        _check(links >= 0.99, f"{name}: links equal {links}")
+
+    # -- 11. insertion timing at the bench's inputs -------------------------
+    bmap = entry.map_from_numpy(entry.bench_map(kcfg, entry.KITTI_N_KF, entry.KITTI_N_PT), dev)
+    bbm = build_observer_bitmap(bmap)
+    brng = np.random.default_rng(0)  # bench.py's mk_args(0)
+    bl = torch.tensor(brng.uniform(0, 255, (kcam.height, kcam.width)), dtype=torch.float32)
+    br = torch.tensor(brng.uniform(0, 255, (kcam.height, kcam.width)), dtype=torch.float32)
+    bfeat = torch.tensor(brng.integers(-1, 40000, kcfg.n_features), dtype=torch.int32).to(dev)
+    bframe = build_frame_stereo(bl.to(dev), br.to(dev), 0.0, kcam, **kw)
+    bcd = kcfg.th_depth * kcam.baseline
+    eye = torch.eye(4, device=dev)
+    insert_ms = {}
+    grows = {name: (lambda rebuild=rebuild: entry.grow_map_step(
+        bmap, bbm, bframe, eye, bfeat, 0.0, 99, bcd, rebuild))
+        for name, rebuild in (("full", True), ("light", False))}
+    for grow in grows.values():
+        for _ in range(3):
+            grow()
+    # full and light in turns, so that the host's load falls on both alike
+    times = {name: ([], []) for name in grows}
+    for _ in range(20):
+        for name, grow in grows.items():
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            grow()
+            end.record()
+            end.synchronize()
+            times[name][1].append((time.perf_counter() - t0) * 1e3)
+            times[name][0].append(start.elapsed_time(end))
+    for name, (ev, wall) in times.items():
+        insert_ms[name] = (statistics.median(ev), statistics.median(wall))
+        print(f"[11] {name} insert: {insert_ms[name][0]:.3f} ms on CUDA events, "
+              f"{insert_ms[name][1]:.3f} ms host wall ({card})")
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "runs", "kitti00_full", "summary.json")) as f:
+        summary = json.load(f)
+    kf_every = summary["frames"] / summary["keyframes"]
+    R = kcfg.bm_rebuild_every
+    amortized = {
+        i: step_ms["track_frame_step"][i]
+        + (insert_ms["full"][i] + (R - 1) * insert_ms["light"][i]) / R / kf_every
+        for i in (0, 1)
+    }
+    print(f"[11] amortized KITTI: {amortized[0]:.3f} ms/frame on CUDA events, "
+          f"{amortized[1]:.3f} ms/frame host wall (track_frame_step + (full + "
+          f"{R - 1} light) / {R} / {kf_every:.4f}; {card})")
+    run_s = time.perf_counter() - t_run
+    print(f"[11] phases 1-11 took {run_s:.1f} s, the kernels' build included")
+
     kernels = [
         {"name": "patch_gather", "route": "cuda",
          "source": "orb_slam2_test_tpu_torch/csrc/patches.cu",
@@ -427,11 +596,18 @@ def main() -> int:
     print(json.dumps({
         "kernels": kernels,
         "launches_by_path": {"mono_tracking_step": launches,
-                             "kitti_stereo": k_launches, "rgbd": r_launches},
+                             "kitti_stereo": k_launches, "rgbd": r_launches,
+                             "kitti_insert_sequence": ins_launches},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
         "kitti_stereo_wall_ms": {k: v[1] for k, v in step_ms.items()},
+        "kf_insert_ms": {k: v[0] for k, v in insert_ms.items()},
+        "kf_insert_wall_ms": {k: v[1] for k, v in insert_ms.items()},
+        "kitti_amortized_ms_per_frame": amortized[0],
+        "kitti_amortized_wall_ms_per_frame": amortized[1],
+        "kf_every": kf_every,
+        "run_s": run_s,
     }))
     print(card)
     print(json.dumps({"ok": True, "device": {

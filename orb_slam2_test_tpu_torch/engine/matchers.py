@@ -1,19 +1,20 @@
-"""Projection matching of map points to frame features.
+"""Projection and triangulation matching.
 
-Port of `search_by_projection` and `_resolve_conflicts` from
-orb_slam2_test_tpu/engine/matchers.py (reference: ORBmatcher.cc
-SearchByProjection). Every map point is projected, gated (validity,
-frustum, distance range, predicted octave, window radius) and matched
-through one masked [P, N] Hamming matrix; conflicts where several
-points pick one feature go to the smallest (distance, point row).
-
-The port carries the settings the tracking step uses: no view-angle
-gate (`check_view_cos=False` in the JAX package), no ratio test
-(`ratio=1.0`) and every point in the matrix (`max_candidates=None`).
+Port of `search_by_projection`, `_resolve_conflicts` and
+`search_for_triangulation` from orb_slam2_test_tpu/engine/matchers.py
+(reference: ORBmatcher.cc SearchByProjection, SearchForTriangulation).
+Every map point is projected, gated (validity, frustum, distance range,
+view angle, predicted octave, window radius) and matched through one
+masked [P, N] Hamming matrix; conflicts where several points pick one
+feature go to the smallest (distance, point row). Not ported yet:
+`search_for_initialization`, `match_by_descriptor_to_map`,
+`search_by_bow` and `search_by_sim3` (the host tracker and loop
+closing).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -24,6 +25,7 @@ from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam2_test_tpu_torch.ops.extractor import top_k_stable
 from orb_slam2_test_tpu_torch.ops.matching import (
     TH_HIGH,
+    TH_LOW,
     best_two,
     masked_hamming_matrix,
 )
@@ -179,3 +181,65 @@ def search_by_projection(
         pt_feat=pt_feat,
         n_matches=(feat_pt >= 0).sum(dtype=torch.int32),
     )
+
+
+@functools.lru_cache(maxsize=None)
+def camera_matrix(cam: PinholeCamera, device: torch.device) -> torch.Tensor:
+    """The float32 intrinsic matrix K on `device`, uploaded once."""
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        dtype=torch.float32, device=device,
+    )
+
+
+def search_for_triangulation(
+    cam: PinholeCamera,
+    kf1_uv: torch.Tensor, kf1_desc: torch.Tensor, kf1_level: torch.Tensor,
+    kf1_free: torch.Tensor,  # [N1] bool: feature has no map point yet
+    kf2_uv: torch.Tensor, kf2_desc: torch.Tensor, kf2_level: torch.Tensor,
+    kf2_free: torch.Tensor,
+    Tcw1: torch.Tensor, Tcw2: torch.Tensor,
+    max_hamming: int = TH_LOW,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Epipolar-gated matching of unlinked features between two
+    keyframes (ORBmatcher::SearchForTriangulation): all [N1, N2] pairs,
+    the epipolar distance in the second image gated at 3.84 sigma^2 of
+    its octave (with the literal 1.2 of the JAX package, whatever the
+    scale factor), the nearest descriptor within max_hamming, and a
+    mutual check. Returns (match12 [N1] int32 -> index in kf2 or -1,
+    n_matches).
+
+    The inverses are LU inverses as jnp.linalg.inv computes them, taken
+    with `inv_ex`, which reports a singular matrix on the device instead
+    of reading a status back to the host."""
+    dev = kf1_uv.device
+    T21 = Tcw2 @ torch.linalg.inv_ex(Tcw1).inverse
+    R21, t21 = T21[:3, :3], T21[:3, 3]
+    z = torch.zeros_like(t21[0])
+    tx = torch.stack([
+        torch.stack([z, -t21[2], t21[1]]),
+        torch.stack([t21[2], z, -t21[0]]),
+        torch.stack([-t21[1], t21[0], z]),
+    ])
+    K = camera_matrix(cam, dev)
+    Kinv = torch.linalg.inv_ex(K).inverse
+    F12 = Kinv.T @ tx @ R21 @ Kinv
+
+    p1 = torch.cat([kf1_uv, torch.ones_like(kf1_uv[:, :1])], dim=-1)
+    lines = p1 @ F12.T  # epipolar lines in image 2 [N1, 3]
+    p2 = torch.cat([kf2_uv, torch.ones_like(kf2_uv[:, :1])], dim=-1)
+    num = lines @ p2.T  # [N1, N2]
+    den = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    d_epi2 = (num * num) / torch.clamp(den, min=1e-12)[:, None]
+    sigma2_2 = (1.2 ** kf2_level.to(torch.float32)) ** 2
+    epi_ok = d_epi2 < 3.84 * sigma2_2[None, :]
+
+    d = masked_hamming_matrix(kf1_desc, kf2_desc, kf1_free, kf2_free)
+    d = torch.where(epi_ok, d, 512)
+    m12 = torch.where(d.min(dim=-1).values <= max_hamming, d.argmin(dim=-1), -1)
+    # mutual check (argmin returns the first minimum, as in jnp)
+    best21 = d.argmin(dim=0)
+    rows = torch.arange(m12.shape[0], device=dev)
+    agree = best21[m12.clamp(min=0)] == rows
+    m12 = torch.where((m12 >= 0) & agree, m12, -1).to(torch.int32)
+    return m12, (m12 >= 0).sum(dtype=torch.int32)

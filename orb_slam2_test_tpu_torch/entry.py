@@ -1,28 +1,29 @@
-"""The per-frame tracking step, and the scenes that drive it.
+"""The per-frame tracking step, the keyframe insertion, and the scenes
+that drive them.
 
-Two entry points:
+Entry points:
 
 - `track_frame_step` runs one stereo frame through the whole per-frame
   program, `engine.tracking._build_and_track_device(sensor="stereo")`,
   at the KITTI configuration of the JAX package's bench (`KITTI_CAM`,
   `KITTI_CFG`): 32 launches of kernel 1 (8 levels x left ORB, right
   ORB, left SAD, right SAD) and 2 of kernel 2 (motion model, local map).
-  `kitti_scene` builds a stereo pair and a map at KITTI capacity that
-  the frame really observes; `bench_map` is the bench's random map
-  filling, and `map_from_numpy` carries a map given as the JAX
-  package's numpy arrays onto a device.
+- `grow_map_step` inserts a tracked stereo frame as a keyframe through
+  `engine.tracking._grow_map_device`, as the bench's `grow` does: depth
+  points with the close gate, a full insert (rebuild=True: fresh
+  observer bitmap and a keyframe cull) or a light one. It launches
+  neither kernel.
 - `tracking_step` is the port of `__graft_entry__.tracking_step`: ORB
-extraction, projection matching of a local map, and motion-only BA,
-the hot path that runs at frame rate. On CUDA tensors it goes through
-both hand-written kernels (8 patch-gather launches for the 8 pyramid
-levels, one pose-optimization launch); on CPU tensors through their
-plain versions.
+  extraction, projection matching of a local map, and motion-only BA,
+  the mono hot path of slice 1.
 
-`state_from_numpy` carries a map and a pose given as the JAX package's
-numpy arrays onto a device; `consistent_scene` builds a map that a
-frame really observes, so that matches exist and the pose problem is
-real; `example_scene` puts the two together on a seeded texture.
-`pose_problem` is a standalone motion-only BA problem for kernel 2.
+Scenes: `kitti_scene` builds a stereo pair and a map at KITTI capacity
+that the frame really observes; `kitti_insert_scene` three views of four
+planes, 1.07 m apart, for track -> insert -> track -> insert;
+`bench_map` is the bench's random map filling. `map_from_numpy` and
+`map_to_numpy` carry a map between the JAX package's numpy layouts and
+the port's tensors; `state_from_numpy`, `consistent_scene`,
+`example_scene` and `pose_problem` serve the mono step and kernel 2.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from orb_slam2_test_tpu_torch.engine.matchers import search_by_projection
 from orb_slam2_test_tpu_torch.engine.tracking import (
     TrackerConfig,
     _build_and_track_device,
+    _grow_map_device,
 )
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp
@@ -82,6 +84,9 @@ KITTI_N_PT = 110000
 # kitti_scene's right image is the left one shifted by this many
 # pixels: a fronto-parallel plane at bf / 19 = 20.3 m
 STEREO_DISPARITY = 19
+# insert_scene's bands, far to near: each band's stereo disparity in
+# pixels (KITTI: 48.3, 32.2, 24.1 and 20.3 m, all beyond close_depth)
+INSERT_DISPARITIES = (8, 12, 16, 19)
 # TUM freiburg1 RGB-D: Camera.bf of configs/TUM1.yaml
 RGBD_CAM = CAM._replace(bf=40.0)
 # depth (m) of the mono and RGB-D tracking scenes, inside RGBD_CAM's
@@ -335,6 +340,16 @@ def map_from_numpy(m, device: torch.device | str = "cpu") -> MapState:
     return MapState(*[_to_device(get(f), device) for f in MapState._fields])
 
 
+def map_to_numpy(m: MapState) -> dict:
+    """The inverse of `map_from_numpy`: {MapState field: numpy array}
+    in the JAX package's layouts (descriptors uint32)."""
+    out = {}
+    for name, x in zip(MapState._fields, m):
+        a = x.detach().cpu().numpy()
+        out[name] = a.view(np.uint32) if name.endswith("_desc") else a
+    return out
+
+
 def frame_from_numpy(f, device: torch.device | str = "cpu") -> FrameData:
     """A frame given as numpy arrays (descriptors uint32 or int32) as
     the port's FrameData on `device`."""
@@ -387,6 +402,65 @@ def _depth_map(rng: np.random.Generator, h: int, w: int, z0: float) -> np.ndarra
     return d
 
 
+def _view_frame(img, img_b, sensor, cam, cfg, device) -> FrameData:
+    """The frame of one view built on `device`, moved to numpy (the JAX
+    package's layouts, descriptors uint32)."""
+    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
+              scale_factor=cfg.scale_factor)
+    img_t = torch.from_numpy(img).to(device)
+    if sensor == "stereo":
+        frame = build_frame_stereo(img_t, _to_device(img_b, device), 0.0, cam, **kw)
+    elif sensor == "rgbd":
+        frame = build_frame_rgbd(img_t, _to_device(img_b, device), 0.0, cam, **kw)
+    else:
+        frame = build_frame_mono(img_t, 0.0, cam, **kw)
+    frame = FrameData(*[x.cpu().numpy() for x in frame])
+    return frame._replace(desc=frame.desc.view(np.uint32))
+
+
+def _write_keyframe0(m, frame, true_depth, cam, cfg, T, n_pt, stride):
+    """Write `frame` as keyframe 0 of the numpy map `m` at pose T, with a
+    point in slots 0..k-1 for every `stride`-th valid keypoint that has
+    a true depth: back-projected at that depth, with the keypoint's
+    descriptor and the normal and distance range of
+    MapPoint::UpdateNormalAndDepth (as in `consistent_scene`). Returns
+    (keyframe 0's links [N], the keypoints given a point, k)."""
+    h, w = true_depth.shape
+    uv = frame.uv.astype(np.float64)
+    xi = np.clip(np.round(frame.uv_raw[:, 0]).astype(int), 0, w - 1)
+    yi = np.clip(np.round(frame.uv_raw[:, 1]).astype(int), 0, h - 1)
+    z = true_depth[yi, xi].astype(np.float64)
+    idx = np.flatnonzero(frame.valid & (z > 0))[: n_pt * stride : stride]
+    k = idx.size
+    pc = np.stack(
+        [(uv[idx, 0] - cam.cx) / cam.fx * z[idx],
+         (uv[idx, 1] - cam.cy) / cam.fy * z[idx], z[idx]],
+        axis=1,
+    )
+    R, t = T[:3, :3].astype(np.float64), T[:3, 3].astype(np.float64)
+    Xw = (pc - t) @ R  # R^T (pc - t), row-wise
+    view = Xw + R.T @ t  # Xw - Ow with Ow = -R^T t
+    dist = np.linalg.norm(view, axis=1)
+    maxd = dist * cfg.scale_factor ** frame.level[idx].astype(np.float64)
+
+    m["pt_xyz"][:k] = Xw
+    m["pt_desc"][:k] = frame.desc[idx]
+    m["pt_normal"][:k] = view / dist[:, None]
+    m["pt_max_dist"][:k] = maxd
+    m["pt_min_dist"][:k] = maxd / cfg.scale_factor ** (cfg.n_levels - 1)
+    m["pt_valid"][:k] = True
+    m["pt_ref_kf"][:k] = 0
+    links = np.full(cfg.n_features, -1, np.int32)
+    links[idx] = np.arange(k, dtype=np.int32)
+    m["kf_Tcw"][0] = T
+    for f in ("uv", "level", "angle", "ur", "depth", "desc"):
+        m["kf_" + f][0] = getattr(frame, f)
+    m["kf_kp_valid"][0] = frame.valid
+    m["kf_pt_idx"][0] = links
+    m["kf_valid"][0] = True
+    return links, idx, k
+
+
 def tracking_scene(
     rng: np.random.Generator,
     sensor: str,
@@ -406,71 +480,29 @@ def tracking_scene(
     plane at SCENE_DEPTH.
 
     The frame is built on `device` and its valid keypoints become point
-    slots 0..k-1 of a `bench_map` filling, back-projected at their true
-    depth from T_true, each with its keypoint's descriptor and with the
-    normal and distance range of MapPoint::UpdateNormalAndDepth (as in
-    `consistent_scene`). Keyframe 0 holds T_true and the frame's
-    keypoints, its features linked to those points; the bench's random
-    keyframes may link them too. The last frame is the frame itself, but
-    it links only every second scene point, as if it had lost the
-    others: motion-model tracking matches those (and, with depth,
-    temporary points for the rest), and local-map tracking must find
-    the others again through keyframe 0."""
+    slots 0..k-1 of a `bench_map` filling (`_write_keyframe0`): keyframe
+    0 holds T_true and the frame's keypoints, its features linked to
+    those points; the bench's random keyframes may link them too. The
+    last frame is the frame itself, but it links only every second
+    scene point, as if it had lost the others: motion-model tracking
+    matches those (and, with depth, temporary points for the rest), and
+    local-map tracking must find the others again through keyframe 0."""
     h, w = cam.height, cam.width
     img = texture_image(rng, h, w)
-    img_t = torch.from_numpy(img).to(device)
-    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels,
-              scale_factor=cfg.scale_factor)
     if sensor == "stereo":
         img_b = np.ascontiguousarray(img[:, np.minimum(np.arange(w) + disparity, w - 1)])
         true_depth = np.full((h, w), cam.bf / disparity, np.float32)
-        frame = build_frame_stereo(img_t, _to_device(img_b, device), 0.0, cam, **kw)
     elif sensor == "rgbd":
         img_b = true_depth = _depth_map(rng, h, w, SCENE_DEPTH)
-        frame = build_frame_rgbd(img_t, _to_device(img_b, device), 0.0, cam, **kw)
     elif sensor == "mono":
         img_b = None
         true_depth = np.full((h, w), SCENE_DEPTH, np.float32)
-        frame = build_frame_mono(img_t, 0.0, cam, **kw)
     else:
         raise ValueError(f"sensor must be mono, stereo or rgbd, got {sensor!r}")
-    frame = FrameData(*[x.cpu().numpy() for x in frame])
-    frame = frame._replace(desc=frame.desc.view(np.uint32))
-
+    frame = _view_frame(img, img_b, sensor, cam, cfg, device)
     T_true = se3_exp(torch.tensor(XI_TRUE)).numpy()
     m = bench_map(cfg, n_kf, n_pt, seed=int(rng.integers(2**31)))
-    uv = frame.uv.astype(np.float64)
-    xi = np.clip(np.round(frame.uv_raw[:, 0]).astype(int), 0, w - 1)
-    yi = np.clip(np.round(frame.uv_raw[:, 1]).astype(int), 0, h - 1)
-    z = true_depth[yi, xi].astype(np.float64)
-    idx = np.flatnonzero(frame.valid & (z > 0))[:n_pt]
-    k = idx.size
-    pc = np.stack(
-        [(uv[idx, 0] - cam.cx) / cam.fx * z[idx],
-         (uv[idx, 1] - cam.cy) / cam.fy * z[idx], z[idx]],
-        axis=1,
-    )
-    R, t = T_true[:3, :3].astype(np.float64), T_true[:3, 3].astype(np.float64)
-    Xw = (pc - t) @ R  # R^T (pc - t), row-wise
-    view = Xw + R.T @ t  # Xw - Ow with Ow = -R^T t
-    dist = np.linalg.norm(view, axis=1)
-    maxd = dist * cfg.scale_factor ** frame.level[idx].astype(np.float64)
-
-    m["pt_xyz"][:k] = Xw
-    m["pt_desc"][:k] = frame.desc[idx]
-    m["pt_normal"][:k] = view / dist[:, None]
-    m["pt_max_dist"][:k] = maxd
-    m["pt_min_dist"][:k] = maxd / cfg.scale_factor ** (cfg.n_levels - 1)
-    m["pt_valid"][:k] = True
-    m["pt_ref_kf"][:k] = 0
-    links = np.full(cfg.n_features, -1, np.int32)
-    links[idx] = np.arange(k, dtype=np.int32)
-    m["kf_Tcw"][0] = T_true
-    for f in ("uv", "level", "angle", "ur", "depth", "desc"):
-        m["kf_" + f][0] = getattr(frame, f)
-    m["kf_kp_valid"][0] = frame.valid
-    m["kf_pt_idx"][0] = links
-    m["kf_valid"][0] = True
+    links, idx, k = _write_keyframe0(m, frame, true_depth, cam, cfg, T_true, n_pt, 1)
     last_links = np.full(cfg.n_features, -1, np.int32)
     last_links[idx[::2]] = links[idx[::2]]
 
@@ -480,6 +512,144 @@ def tracking_scene(
         T_cr=np.eye(4, dtype=np.float32), last_feat_pt=last_links, last_frame=frame,
         ref_kf=0, close_depth=float(cfg.th_depth * cam.baseline),
         T_true=T_true, n_scene=k,
+    )
+
+
+class InsertScene(NamedTuple):
+    """Three views of a seeded scene, the second and third moved
+    sideways, and a map that holds the first as keyframe 0, as numpy
+    arrays in the JAX package's layouts:
+
+    views         three (img_a, img_b): the image (left for stereo) and
+                  the right image (stereo, uint8), depth map (RGB-D,
+                  float32 m) or None (mono)
+    T_true        the three true poses [4, 4]
+    depth         [H, W] true depth of every pixel (m)
+    map           {MapState field: array}
+    vel           the motion from one view to the next, off by
+                  XI_PRED_ERROR
+    last_feat_pt  keyframe 0's links: the last frame of view 1's tracking
+    last_frame    view 0's frame (FrameData of numpy arrays)
+    close_depth, n_scene (points written, in slots 0..n_scene-1)
+    """
+
+    views: list
+    T_true: list
+    depth: np.ndarray
+    map: dict
+    vel: np.ndarray
+    last_feat_pt: np.ndarray
+    last_frame: FrameData
+    close_depth: float
+    n_scene: int
+
+
+def insert_scene(
+    rng: np.random.Generator,
+    sensor: str,
+    cam: PinholeCamera,
+    cfg: TrackerConfig,
+    n_kf: int,
+    n_pt: int,
+    device: torch.device | str = "cpu",
+) -> InsertScene:
+    """A scene in which keyframe insertion does real work: four
+    horizontal bands of one seeded texture, each a fronto-parallel plane,
+    from the farthest at the top to the nearest at the bottom. Band b
+    lies at z_b = z0 * 19 / d_b for d_b in INSERT_DISPARITIES (z0 =
+    bf / 19 = 20.3 m for stereo, SCENE_DEPTH otherwise): its stereo
+    disparity is d_b pixels and between two views it shifts by 2 d_b
+    pixels, so every view and right image is an exact integer shift of
+    the texture, and the camera moves 2 x 19 x z0 / fx sideways per
+    view (1.07 m at KITTI, a parallax of 3.0 to 1.3 degrees, inside
+    min_parallax_cos 0.9998). The spread of depths keeps the pose
+    observable: on a single plane a tilt and a vertical shift look
+    alike, and the BA's reduced camera system is near-singular.
+
+    View 0 becomes keyframe 0 of a `bench_map` filling with only every
+    second keypoint linked to a point, so the others are free to be
+    triangulated against the next keyframe; no other keyframe observes
+    the scene's points."""
+    h, w = cam.height, cam.width
+    if sensor not in ("mono", "stereo", "rgbd"):
+        raise ValueError(f"sensor must be mono, stereo or rgbd, got {sensor!r}")
+    disp = np.asarray(INSERT_DISPARITIES)
+    z0 = cam.bf / STEREO_DISPARITY if sensor == "stereo" else SCENE_DEPTH
+    bands = np.array_split(np.arange(h), disp.size)
+    tex = texture_image(rng, h, w + 5 * int(disp.max()))
+    depth = np.empty((h, w), np.float32)
+    for rows, d in zip(bands, disp):
+        depth[rows] = z0 * STEREO_DISPARITY / d
+    views = []
+    for i in range(3):
+        img, right = np.empty((h, w), np.uint8), np.empty((h, w), np.uint8)
+        for rows, d in zip(bands, disp):
+            cols = 2 * i * d + np.arange(w)
+            img[rows] = tex[rows][:, cols]
+            right[rows] = tex[rows][:, cols + d]
+        img_b = {"stereo": right, "rgbd": depth, "mono": None}[sensor]
+        views.append((img, img_b))
+    frame = _view_frame(*views[0], sensor, cam, cfg, device)
+    step = np.eye(4, dtype=np.float32)
+    step[0, 3] = -2 * STEREO_DISPARITY * z0 / cam.fx
+    T0 = se3_exp(torch.tensor(XI_TRUE)).numpy()
+    T_true = [T0, step @ T0, step @ step @ T0]
+    m = bench_map(cfg, n_kf, n_pt, seed=int(rng.integers(2**31)))
+    links, _, k = _write_keyframe0(m, frame, depth, cam, cfg, T0, n_pt, 2)
+    # the bench's random keyframes drop their links to the scene's
+    # points: linked, they would share a few random observations with
+    # every new keyframe and enter its local BA as free cameras whose
+    # garbage observations drag the scene's points metres away (in both
+    # packages alike)
+    bench_rows = m["kf_pt_idx"][1:]
+    bench_rows[(bench_rows >= 0) & (bench_rows < k)] = -1
+    vel = se3_exp(torch.tensor(XI_PRED_ERROR)).numpy() @ step
+    return InsertScene(
+        views=views, T_true=T_true, depth=depth, map=m, vel=vel,
+        last_feat_pt=links, last_frame=frame,
+        close_depth=float(cfg.th_depth * cam.baseline), n_scene=k,
+    )
+
+
+def kitti_insert_scene(
+    rng: np.random.Generator,
+    device: torch.device | str = "cpu",
+    cfg: TrackerConfig = KITTI_CFG,
+    n_kf: int = KITTI_N_KF,
+    n_pt: int = KITTI_N_PT,
+) -> InsertScene:
+    """The stereo `insert_scene` at KITTI geometry (1241x376, 2000
+    features, bands at 20.3-48.3 m), by default at the bench's capacity
+    and occupancy. close_depth (18.8 m) lies in front of every band, so
+    the depth points of an insert come from the "100 nearest" branch of
+    the close gate, on the tied depths of the nearest band."""
+    return insert_scene(rng, "stereo", KITTI_CAM, cfg, n_kf, n_pt, device)
+
+
+def track_insert_view(
+    scene: InsertScene,
+    i: int,
+    m: MapState,
+    obs_bm: torch.Tensor,
+    last_frame: FrameData,
+    last_feat_pt: torch.Tensor,
+    ref_kf: torch.Tensor,
+    cam: PinholeCamera = KITTI_CAM,
+    cfg: TrackerConfig = KITTI_CFG,
+    sensor: str = "stereo",
+) -> tuple[FrameData, tuple[torch.Tensor, ...]]:
+    """Track view i of an insert scene against map m, on m's device: the
+    per-frame program with the scene's motion and the last frame
+    anchored at ref_kf (T_cr = I: the last frame is that keyframe).
+    Returns (frame, the 17 outputs of `_track_frame_device`)."""
+    dev = m.kf_Tcw.device
+    img_a, img_b = scene.views[i]
+    f32_matmuls()
+    return _build_and_track_device(
+        cam, cfg, sensor, m, obs_bm, _to_device(img_a, dev),
+        None if img_b is None else _to_device(img_b, dev), float(i),
+        _to_device(scene.vel.astype(np.float32), dev),
+        torch.eye(4, device=dev), last_feat_pt, last_frame, ref_kf, scene.close_depth,
     )
 
 
@@ -538,4 +708,29 @@ def track_frame_step(
     return _build_and_track_device(
         cam, cfg, "stereo", m, obs_bm, img_left, img_right, timestamp, vel,
         T_cr, last_feat_pt, last_frame, ref_kf, close_depth,
+    )
+
+
+def grow_map_step(
+    m: MapState,
+    obs_bm: torch.Tensor,
+    frame: FrameData,
+    Tcw: torch.Tensor,
+    feat_pt: torch.Tensor,
+    timestamp,
+    frame_id,
+    close_depth,
+    rebuild: bool,
+    cam: PinholeCamera = KITTI_CAM,
+    cfg: TrackerConfig = KITTI_CFG,
+) -> tuple[MapState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Insert a tracked stereo frame as a keyframe at KITTI: depth points
+    through the close gate, then the local-mapping stages; a full insert
+    (rebuild=True) or a light one (the JAX bench's `grow`). Returns
+    (map, kf, culled kf or -1, n_pt, observer bitmap); the arguments are
+    left unchanged."""
+    f32_matmuls()
+    return _grow_map_device(
+        cam, cfg, m, obs_bm, frame, Tcw, feat_pt, timestamp, frame_id,
+        close_depth, use_depth=True, close_gate=True, rebuild=rebuild,
     )

@@ -20,3 +20,10 @@ def huber_weight(chi2: torch.Tensor, delta) -> torch.Tensor:
     """IRLS weight for the Huber loss: 1 for |r| <= delta, else delta/|r|."""
     r = torch.sqrt(torch.clamp(chi2, min=1e-12))
     return torch.clamp(delta / r, max=1.0)
+
+
+def huber_loss(chi2: torch.Tensor, delta) -> torch.Tensor:
+    """rho(chi2), the robustified cost: chi2 for |r| <= delta, else
+    2 delta |r| - delta^2."""
+    r = torch.sqrt(torch.clamp(chi2, min=1e-12))
+    return torch.where(r <= delta, chi2, 2.0 * delta * r - delta * delta)

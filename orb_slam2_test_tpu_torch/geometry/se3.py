@@ -71,11 +71,10 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(R [..., 3, 3], t [..., 3]) -> T [..., 4, 4]."""
     batch = torch.broadcast_shapes(R.shape[:-2], t.shape[:-1])
-    T = torch.zeros(batch + (4, 4), dtype=R.dtype, device=R.device)
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    T[..., 3, 3] = 1.0
-    return T
+    top = torch.cat([R.expand(batch + (3, 3)), t.expand(batch + (3,))[..., None]], dim=-1)
+    # the row (0, 0, 0, 1) made on the device: no host-to-device copy
+    bottom = torch.eye(4, dtype=R.dtype, device=R.device)[3:].expand(batch + (1, 4))
+    return torch.cat([top, bottom], dim=-2)
 
 
 def so3_project(R: torch.Tensor) -> torch.Tensor:

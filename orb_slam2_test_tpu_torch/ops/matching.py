@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 TH_HIGH = 100  # ORBmatcher.h
+TH_LOW = 50
 
 
 def unpack_bipolar(desc: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
