@@ -6,8 +6,9 @@ Entry points:
 - `track_frame_step` runs one stereo frame through the whole per-frame
   program, `engine.tracking._build_and_track_device(sensor="stereo")`,
   at the KITTI configuration of the JAX package's bench (`KITTI_CAM`,
-  `KITTI_CFG`): 32 launches of kernel 1 (8 levels x left ORB, right
-  ORB, left SAD, right SAD) and 2 of kernel 2 (motion model, local map).
+  `KITTI_CFG`): 3 launches of kernel 1 (every level of the left ORB,
+  of the right ORB, and of both SAD sides) and 2 of kernel 2 (motion
+  model, local map).
 - `grow_map_step` inserts a tracked stereo frame as a keyframe through
   `engine.tracking._grow_map_device`, as the bench's `grow` does: depth
   points with the close gate, a full insert (rebuild=True: fresh
@@ -24,6 +25,8 @@ planes, 1.07 m apart, for track -> insert -> track -> insert;
 `map_to_numpy` carry a map between the JAX package's numpy layouts and
 the port's tensors; `state_from_numpy`, `consistent_scene`,
 `example_scene` and `pose_problem` serve the mono step and kernel 2.
+Every function that puts tensors on a device does so on the card
+(`device="cuda"`) unless the caller asks for another, such as "cpu".
 """
 
 from __future__ import annotations
@@ -127,7 +130,7 @@ def tracking_step(
 
 def state_from_numpy(
     img, pts_xyz, pts_desc, pts_valid, pts_normal, pts_mind, pts_maxd, Tcw,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[torch.Tensor, ...]:
     """The arguments of `tracking_step`, from the JAX package's layouts
     as numpy (descriptors uint32 [P, 8]) to the port's tensors on
@@ -215,7 +218,7 @@ def texture_image(rng: np.random.Generator, h: int, w: int) -> np.ndarray:
 
 def example_scene(
     rng: np.random.Generator,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     cam: PinholeCamera = CAM,
     n_features: int = N_FEATURES,
     n_pts: int = N_PTS,
@@ -332,7 +335,7 @@ def _to_device(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def map_from_numpy(m, device: torch.device | str = "cpu") -> MapState:
+def map_from_numpy(m, device: torch.device | str = "cuda") -> MapState:
     """A map given as the JAX package's numpy arrays (a mapping or a
     NamedTuple with the MapState fields; descriptors uint32) as the
     port's MapState on `device` (descriptors viewed as int32)."""
@@ -350,7 +353,7 @@ def map_to_numpy(m: MapState) -> dict:
     return out
 
 
-def frame_from_numpy(f, device: torch.device | str = "cpu") -> FrameData:
+def frame_from_numpy(f, device: torch.device | str = "cuda") -> FrameData:
     """A frame given as numpy arrays (descriptors uint32 or int32) as
     the port's FrameData on `device`."""
     return FrameData(*[_to_device(getattr(f, k), device) for k in FrameData._fields])
@@ -468,7 +471,7 @@ def tracking_scene(
     cfg: TrackerConfig,
     n_kf: int,
     n_pt: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     disparity: int = STEREO_DISPARITY,
 ) -> TrackScene:
     """A seeded texture seen from T_true, and a map that observes it.
@@ -551,7 +554,7 @@ def insert_scene(
     cfg: TrackerConfig,
     n_kf: int,
     n_pt: int,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> InsertScene:
     """A scene in which keyframe insertion does real work: four
     horizontal bands of one seeded texture, each a fronto-parallel plane,
@@ -613,7 +616,7 @@ def insert_scene(
 
 def kitti_insert_scene(
     rng: np.random.Generator,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     cfg: TrackerConfig = KITTI_CFG,
     n_kf: int = KITTI_N_KF,
     n_pt: int = KITTI_N_PT,
@@ -655,7 +658,7 @@ def track_insert_view(
 
 def kitti_scene(
     rng: np.random.Generator,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
     cfg: TrackerConfig = KITTI_CFG,
     n_kf: int = KITTI_N_KF,
     n_pt: int = KITTI_N_PT,
@@ -668,7 +671,7 @@ def kitti_scene(
     )
 
 
-def scene_inputs(scene: TrackScene, device: torch.device | str = "cpu") -> tuple:
+def scene_inputs(scene: TrackScene, device: torch.device | str = "cuda") -> tuple:
     """The scene on `device`, as the arguments of `track_frame_step` and
     of `_build_and_track_device` after (cam, cfg, sensor): (m, obs_bm,
     img_a, img_b, timestamp, vel, T_cr, last_feat_pt, last_frame,

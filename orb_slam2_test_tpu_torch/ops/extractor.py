@@ -21,7 +21,10 @@ import torch
 
 from orb_slam2_test_tpu_torch.ops.brief import EDGE_MARGIN
 from orb_slam2_test_tpu_torch.ops.fast import border_mask, fast_response, nms_3x3
-from orb_slam2_test_tpu_torch.ops.patches import extract_raw_patches, orb_from_patches
+from orb_slam2_test_tpu_torch.ops.patches import (
+    extract_raw_patches_levels,
+    orb_from_patches,
+)
 from orb_slam2_test_tpu_torch.ops.pyramid import build_pyramid
 
 HIGH_TH_BONUS = 1.0e5  # ranking bonus for corners passing iniThFAST
@@ -124,7 +127,8 @@ def extract_orb(
     pyr = pyramid if pyramid is not None else build_pyramid(img, n_levels, scale_factor)
     budgets = level_feature_budget(n_features, n_levels, scale_factor)
 
-    outs = {k: [] for k in Features._fields}
+    outs = {k: [] for k in ("xy", "uv", "level", "response", "valid")}
+    images, counts = [], []
     for l, (level_img, n_l) in enumerate(zip(pyr, budgets)):
         if n_l == 0:
             continue
@@ -138,21 +142,22 @@ def extract_orb(
         eff = nms_3x3(eff)
 
         xy, resp, valid = _select_level_keypoints(eff, n_l)
-
-        # kernel 1 gathers the windows; moments, blur and BRIEF follow
-        raw = extract_raw_patches(level_img, xy)
-        angle, desc = orb_from_patches(raw)
-
+        images.append(level_img)
+        counts.append(n_l)
+        outs["xy"].append(xy)
         outs["uv"].append(xy * scale_factor**l)
         outs["level"].append(
             torch.full((n_l,), l, dtype=torch.int32, device=img.device)
         )
-        outs["angle"].append(angle)
         # strip the high-threshold bonus back out of the reported response
         outs["response"].append(
             torch.where(resp >= HIGH_TH_BONUS, resp - HIGH_TH_BONUS, resp)
         )
-        outs["desc"].append(desc)
         outs["valid"].append(valid)
 
-    return Features(**{k: torch.cat(v, dim=0) for k, v in outs.items()})
+    cat = {k: torch.cat(v, dim=0) for k, v in outs.items()}
+    # one kernel-1 launch gathers the windows of every level, in level
+    # order; moments, blur and BRIEF are row-wise, so one pass serves all
+    raw = extract_raw_patches_levels(images, cat.pop("xy"), counts)
+    angle, desc = orb_from_patches(raw)
+    return Features(angle=angle, desc=desc, **cat)

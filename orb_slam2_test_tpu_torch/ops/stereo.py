@@ -9,19 +9,23 @@ pyramid-level images, and matches whose SAD exceeds the robust median
 gate are dropped.
 
 The SAD windows are cut from the 32x32 core of the raw patches that
-kernel 1 (`ops.patches.extract_raw_patches`) gathers: two launches per
-pyramid level, one on the left image and one on the right, so 16 per
-stereo frame at 8 levels.
+kernel 1 (`ops.patches.extract_raw_patches_levels`) gathers: one launch
+for every level of both pyramids (16 images at 8 levels; the kernel's
+table takes 32), and one SAD pass over all slots.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from orb_slam2_test_tpu_torch.ops.brief import PATCH
 from orb_slam2_test_tpu_torch.ops.extractor import Features, level_feature_budget
 from orb_slam2_test_tpu_torch.ops.matching import best_two, masked_hamming_matrix
-from orb_slam2_test_tpu_torch.ops.patches import CORE_OFF, extract_raw_patches
+from orb_slam2_test_tpu_torch.ops.patches import CORE_OFF, extract_raw_patches_levels
 
 TH_ORB = 75  # (TH_HIGH + TH_LOW) / 2, reference thOrbDist
 SAD_W = 5  # 11x11 window
@@ -95,26 +99,43 @@ def associate(
     return (best <= TH_ORB) & fl.valid, best_idx.clamp(min=0).to(torch.int64)
 
 
+@functools.lru_cache(maxsize=None)
+def _row_inv_scale(
+    device: torch.device, counts: tuple[int, ...], levels: tuple[int, ...],
+    scale_factor: float,
+) -> torch.Tensor:
+    """[N] float32 1 / scale of each feature slot's level (slots are in
+    level order, counts[i] of them at levels[i]), made once per device."""
+    inv = np.repeat([1.0 / float(scale_factor**l) for l in levels], counts)
+    return torch.from_numpy(inv.astype(np.float32)).to(device)
+
+
+class SadCoordinates(NamedTuple):
+    """Kernel 1's inputs for the SAD, every level at once: the levels
+    with keypoints and their slot counts (slots are in level order), and
+    per slot 1 / scale of its level, the left keypoint [N, 2] and its
+    right candidate [N, 2] in that level's coordinates. The right
+    candidate is scaled to the LEFT keypoint's level."""
+
+    levels: list[int]
+    counts: list[int]
+    inv_s: torch.Tensor
+    xy_l: torch.Tensor
+    xy_r: torch.Tensor
+
+
 def sad_coordinates(
     fl: Features, fr: Features, j: torch.Tensor, n_features: int, n_levels: int,
     scale_factor: float,
-) -> list[tuple[int, slice, float, torch.Tensor, torch.Tensor]]:
-    """Per pyramid level with keypoints: (level, slot range, 1 / scale,
-    left keypoints [n_l, 2] and their right candidates [n_l, 2] in that
-    level's coordinates). The right candidate is scaled to the LEFT
-    keypoint's level. These are kernel 1's inputs for the SAD."""
-    out = []
-    start = 0
-    for l, n_l in enumerate(level_feature_budget(n_features, n_levels, scale_factor)):
-        if n_l == 0:
-            continue
-        sl = slice(start, start + n_l)
-        inv_s = 1.0 / float(scale_factor**l)
-        xy_l = (fl.uv[sl] * inv_s).contiguous()
-        xy_r = (fr.uv[j[sl]] * inv_s).contiguous()
-        out.append((l, sl, inv_s, xy_l, xy_r))
-        start += n_l
-    return out
+) -> SadCoordinates:
+    """The SAD's window centres; see `SadCoordinates`."""
+    budgets = level_feature_budget(n_features, n_levels, scale_factor)
+    levels = [l for l, n_l in enumerate(budgets) if n_l > 0]
+    counts = [budgets[l] for l in levels]
+    inv_s = _row_inv_scale(fl.uv.device, tuple(counts), tuple(levels), scale_factor)
+    return SadCoordinates(
+        levels, counts, inv_s, fl.uv * inv_s[:, None], fr.uv[j] * inv_s[:, None]
+    )
 
 
 def stereo_match(
@@ -130,30 +151,22 @@ def stereo_match(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Associate left -> right features and compute (ur [N], depth [N]);
     -1 where no stereo match."""
-    dev = fl.uv.device
     if min_z is None:
         min_z = bf / left_pyr[0].shape[1]  # baseline (reference minZ = b)
     max_disp = bf / min_z
     matched, j = associate(fl, fr, max_disp, n_levels, scale_factor)
 
-    # per-level SAD subpixel refinement over the static level slot ranges
-    ur = torch.full((n_features,), -1.0, device=dev)
-    sad_all = torch.full((n_features,), torch.inf, device=dev)
+    # SAD subpixel refinement of every slot at once: the windows of both
+    # sides on every level come from one kernel-1 launch
+    sc = sad_coordinates(fl, fr, j, n_features, n_levels, scale_factor)
+    n = sc.xy_l.shape[0]
+    images = [left_pyr[l] for l in sc.levels] + [right_pyr[l] for l in sc.levels]
+    raw = extract_raw_patches_levels(images, torch.cat([sc.xy_l, sc.xy_r]), sc.counts * 2)
     co = CORE_OFF
-    for l, sl, inv_s, xy_l, xy_r in sad_coordinates(
-        fl, fr, j, n_features, n_levels, scale_factor
-    ):
-        n_l = xy_l.shape[0]
-        lp = extract_raw_patches(left_pyr[l], xy_l)[
-            :, co : co + PATCH, co : co + PATCH
-        ].reshape(n_l, PATCH * PATCH)
-        rp = extract_raw_patches(right_pyr[l], xy_r)[
-            :, co : co + PATCH, co : co + PATCH
-        ].reshape(n_l, PATCH * PATCH)
-        delta, best_sad = _sad_refine(lp, rp)
-        # refined right u in full-resolution coordinates
-        ur[sl] = (torch.round(xy_r[:, 0]) + delta) / inv_s
-        sad_all[sl] = best_sad
+    core = raw[:, co : co + PATCH, co : co + PATCH].reshape(2 * n, PATCH * PATCH)
+    delta, sad_all = _sad_refine(core[:n], core[n:])
+    # refined right u in full-resolution coordinates
+    ur = (torch.round(sc.xy_r[:, 0]) + delta) / sc.inv_s
 
     disp_final = fl.uv[:, 0] - ur
     ok = matched & (disp_final > 0.0) & (disp_final <= max_disp)

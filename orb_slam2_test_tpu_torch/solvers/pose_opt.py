@@ -51,17 +51,10 @@ def pose_optimization(
     """Motion-only BA: kernel 2 for CUDA tensors, the plain version for
     CPU tensors; any other device raises."""
     if X.is_cuda:
-        Tcw, inliers, chi2 = pose_optimization_cuda(
+        return PoseOptResult(*pose_optimization_cuda(
             cam, Tcw0, X, obs, inv_sigma2, valid,
             rounds=rounds, iters_per_round=iters_per_round, damping=damping,
-        )
-        inliers = inliers & valid
-        return PoseOptResult(
-            Tcw=Tcw,
-            inliers=inliers,
-            n_inliers=inliers.sum(dtype=torch.int32),
-            chi2=chi2,
-        )
+        ))
     if X.device.type == "cpu":
         return _pose_optimization_plain(
             cam, Tcw0, X, obs, inv_sigma2, valid,

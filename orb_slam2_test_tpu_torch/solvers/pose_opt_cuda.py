@@ -2,9 +2,11 @@
 
 The counterpart of orb_slam2_test_tpu/solvers/pose_opt_pallas.py: the
 whole rounds x iterations Gauss-Newton schedule runs in one launch, so
-the 40 dependent iterations cost no host round trips. The wrapper
-keeps the JAX wrapper's `se3_project` on the input and output pose;
-`pose_opt.pose_optimization` ANDs the inliers with `valid`.
+the 40 dependent iterations cost no host round trips. The kernel also
+does what the JAX wrapper does around its kernel: `se3_project` of the
+input and output pose, reading `valid`, ANDing the inliers with it and
+counting them. A call on the card is one launch and its four output
+allocations.
 """
 
 from __future__ import annotations
@@ -20,7 +22,6 @@ from orb_slam2_test_tpu_torch.geometry.robust import (
     HUBER_MONO,
     HUBER_STEREO,
 )
-from orb_slam2_test_tpu_torch.geometry.se3 import se3_project
 from orb_slam2_test_tpu_torch.utils.cuda_build import CudaKernel, stream_ptr
 
 _P = ctypes.c_void_p
@@ -32,7 +33,7 @@ POSE_OPT = CudaKernel(
      _F, _F, _F, _F, _F,  # fx, fy, cx, cy, bf
      _F, _F, _F, _F, _F,  # chi2 gates, huber deltas, damping
      _I, _I,  # rounds, iters_per_round
-     _P, _P, _P, _P],  # T_out, inl, chi2, stream
+     _P, _P, _P, _P, _P],  # T_out, inliers, chi2, n_inliers, stream (this order)
 )
 
 
@@ -47,7 +48,7 @@ def _check(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def pose_optimization_cuda(
+def pose_opt_launch_args(
     cam: PinholeCamera,
     Tcw0: torch.Tensor,  # [4, 4] float32
     X: torch.Tensor,  # [O, 3] float32 world points
@@ -57,10 +58,10 @@ def pose_optimization_cuda(
     rounds: int = 4,
     iters_per_round: int = 10,
     damping: float = 1e-3,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Returns (Tcw [4, 4], inliers [O] bool, chi2 [O]) with the
-    semantics of pose_opt_pallas.pose_optimization_tpu. Counts each
-    launch in POSE_OPT.launches."""
+) -> tuple[tuple, tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """Kernel 2's checked arguments on CUDA tensors: (the C entry
+    point's arguments, the outputs they write: Tcw [4, 4], inliers [O]
+    bool, n_inliers [] int32, chi2 [O])."""
     dev = X.device
     if not X.is_cuda:
         raise ValueError(f"pose_opt needs CUDA tensors, got {dev}")
@@ -73,19 +74,38 @@ def pose_optimization_cuda(
     if rounds < 0 or iters_per_round < 1:
         raise ValueError(f"bad schedule: rounds={rounds}, iters={iters_per_round}")
 
-    T0 = se3_project(Tcw0).reshape(16).contiguous()
-    valid_f = valid.to(torch.float32)
-    T_out = torch.empty(16, dtype=torch.float32, device=dev)
-    inl = torch.empty(O, dtype=torch.float32, device=dev)
+    Tcw = torch.empty((4, 4), dtype=torch.float32, device=dev)
+    inliers = torch.empty(O, dtype=torch.bool, device=dev)
+    n_inliers = torch.empty((), dtype=torch.int32, device=dev)
     chi2 = torch.empty(O, dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        POSE_OPT(
-            _P(T0.data_ptr()), _P(X.data_ptr()), _P(obs.data_ptr()),
-            _P(inv_sigma2.data_ptr()), _P(valid_f.data_ptr()), O,
-            cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
-            CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO, damping,
-            rounds, iters_per_round,
-            _P(T_out.data_ptr()), _P(inl.data_ptr()), _P(chi2.data_ptr()),
-            stream_ptr(dev),
-        )
-    return se3_project(T_out.reshape(4, 4)), inl > 0.5, chi2
+    args = (
+        _P(Tcw0.data_ptr()), _P(X.data_ptr()), _P(obs.data_ptr()),
+        _P(inv_sigma2.data_ptr()), _P(valid.data_ptr()), O,
+        cam.fx, cam.fy, cam.cx, cam.cy, cam.bf,
+        CHI2_MONO, CHI2_STEREO, HUBER_MONO, HUBER_STEREO, damping,
+        rounds, iters_per_round,
+        _P(Tcw.data_ptr()), _P(inliers.data_ptr()), _P(chi2.data_ptr()),
+        _P(n_inliers.data_ptr()), stream_ptr(dev),
+    )
+    return args, (Tcw, inliers, n_inliers, chi2)
+
+
+def pose_optimization_cuda(
+    cam: PinholeCamera,
+    Tcw0: torch.Tensor,
+    X: torch.Tensor,
+    obs: torch.Tensor,
+    inv_sigma2: torch.Tensor,
+    valid: torch.Tensor,
+    rounds: int = 4,
+    iters_per_round: int = 10,
+    damping: float = 1e-3,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (Tcw [4, 4], inliers [O] bool, n_inliers [] int32, chi2
+    [O]) with the semantics of `pose_opt._pose_optimization_plain`, from
+    one launch. Counts each launch in POSE_OPT.launches."""
+    args, outs = pose_opt_launch_args(
+        cam, Tcw0, X, obs, inv_sigma2, valid, rounds, iters_per_round, damping
+    )
+    POSE_OPT.launch(X.device, *args)
+    return outs

@@ -7,8 +7,9 @@ the sources, so an edit to any of them triggers a rebuild. Nothing is
 compiled or loaded when a module is imported.
 
 Each C entry point launches one kernel on the stream it is given and
-returns cudaGetLastError(); `CudaKernel` raises when that is not 0 and
-counts the launches that succeeded.
+returns cudaGetLastError(); `CudaKernel` binds its entry point once,
+raises when that code is not 0, and counts the launches that
+succeeded.
 """
 
 from __future__ import annotations
@@ -37,12 +38,12 @@ NVCC_FLAGS = (
 )
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path, flags: tuple[str, ...]) -> str:
     h = hashlib.sha256()
-    for p in sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh")):
+    for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(flags).encode())
     return h.hexdigest()[:16]
 
 
@@ -71,18 +72,21 @@ class BuildInfo(NamedTuple):
     cached: bool
 
 
-def build_library() -> BuildInfo:
+def build_library(csrc: Path = CSRC, extra_flags: tuple[str, ...] = ()) -> BuildInfo:
     """Compile csrc/*.cu into _build/libslam_kernels_<hash>.so unless a
-    library for the same sources exists. Raises with the compiler's
-    output if nvcc is missing or fails."""
-    out = BUILD_DIR / f"libslam_kernels_{_source_hash()}.so"
+    library for the same sources and flags exists. Raises with the
+    compiler's output if nvcc is missing or fails. `csrc` and
+    `extra_flags` (for example a -D switch) serve measurement scripts;
+    the package loads the default build."""
+    flags = NVCC_FLAGS + tuple(extra_flags)
+    out = BUILD_DIR / f"libslam_kernels_{_source_hash(csrc, flags)}.so"
     if out.is_file():
         return BuildInfo(out, 0.0, "", cached=True)
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    cmd = [nvcc, *flags, "-o", tmp, *map(str, sorted(csrc.glob("*.cu")))]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     seconds = time.perf_counter() - t0
@@ -117,17 +121,29 @@ class CudaKernel:
         self.symbol = symbol
         self.argtypes = argtypes
         self.launches = 0
+        self._fn = None
 
     def __call__(self, *args) -> None:
-        lib, _ = load_library()
-        fn = getattr(lib, self.symbol)
-        fn.argtypes = self.argtypes
-        fn.restype = ctypes.c_int
-        rc = fn(*args)
+        if self._fn is None:  # bind once: argtypes and restype stay set
+            lib, _ = load_library()
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        rc = self._fn(*args)
         if rc != 0:
-            msg = lib.slam_kernels_error_string(rc).decode()
+            msg = load_library()[0].slam_kernels_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} ({msg})")
         self.launches += 1
+
+    def launch(self, device: torch.device, *args) -> None:
+        """Call the entry point with `device` current; the device switch
+        is made only when another device is current."""
+        if device.index is None or device.index == torch.cuda.current_device():
+            self(*args)
+        else:
+            with torch.cuda.device(device):
+                self(*args)
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:

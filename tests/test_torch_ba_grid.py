@@ -165,7 +165,7 @@ def test_run_local_ba(seed, kf, bitmap, covis):
     and without a precomputed covisibility row; the point budget (256)
     is below the window's points, so the relevance selection cuts."""
     arrays, cap = _ba_map(seed)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     caps = tlm.LocalBACaps(n_local=4, n_fixed=3, n_points=256)
     jcaps = jlm.LocalBACaps(**dataclasses.asdict(caps))
     jkw, tkw = {}, {}

@@ -30,11 +30,11 @@ CFG = ttracking.TrackerConfig(n_features=1000, max_keyframes=32, max_points=4096
 
 def _tracked(sensor, cam, seed):
     """(scene, map, bitmap, view 1's frame and tracking outputs)."""
-    sc = entry.insert_scene(np.random.default_rng(seed), sensor, cam, CFG, 20, 3000)
-    m0 = entry.map_from_numpy(sc.map)
+    sc = entry.insert_scene(np.random.default_rng(seed), sensor, cam, CFG, 20, 3000, "cpu")
+    m0 = entry.map_from_numpy(sc.map, "cpu")
     bm0 = build_observer_bitmap(m0)
     f1, o1 = entry.track_insert_view(
-        sc, 1, m0, bm0, entry.frame_from_numpy(sc.last_frame),
+        sc, 1, m0, bm0, entry.frame_from_numpy(sc.last_frame, "cpu"),
         torch.from_numpy(sc.last_feat_pt), torch.tensor(0, dtype=torch.int32),
         cam=cam, cfg=CFG, sensor=sensor)
     assert np.abs(o1[5].numpy() - sc.T_true[1])[:3, 3].max() < 1e-2

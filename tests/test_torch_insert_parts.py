@@ -359,7 +359,7 @@ def _bench(seed, n_kf=14, n_pt=400):
 @pytest.mark.parametrize("seed", [0, 1])
 def test_covisibility(seed):
     arrays = _bench(seed)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     np.testing.assert_array_equal(tcov.observation_counts(tm).numpy(),
                                   np.asarray(jcov.observation_counts(jm)))
     q = np.array([0, 3, 13, 15], np.int32)  # 15: an empty slot
@@ -378,7 +378,7 @@ def test_covisibility(seed):
         np.testing.assert_array_equal(w.numpy(), np.asarray(jw))
     # parents from a weight row, on keyframes without a parent
     arrays["kf_parent"][:] = -1
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     for k in (0, 5, 13):
         jm = jcov.assign_parent(jm, jnp.asarray(k))
         tm = tcov.assign_parent(tm, torch.tensor(k))
@@ -449,7 +449,7 @@ def _posed_bench(seed):
 @pytest.mark.parametrize("window", [None, [3, 0, 7, -1, 12], [13, -1]])
 def test_update_normals_and_depth(window):
     arrays = _posed_bench(2)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     jw = None if window is None else jnp.asarray(window, jnp.int32)
     tw = None if window is None else torch.tensor(window, dtype=torch.int32)
     j = jmaint.update_normals_and_depth(jm, kf_window=jw)
@@ -473,7 +473,7 @@ def test_update_normals_two_views():
     b.set_valid([0])
     b.j = b.j._replace(pt_xyz=b.j.pt_xyz.at[0].set(jnp.asarray([0.0, 0.0, 4.0])),
                        pt_ref_kf=b.j.pt_ref_kf.at[0].set(0))
-    b.t = entry.map_from_numpy(b.j)
+    b.t = entry.map_from_numpy(b.j, "cpu")
     row = np.full(16, -1, np.int32)
     row[0] = 0
     T1 = np.eye(4, dtype=np.float32)
@@ -499,7 +499,7 @@ def test_update_distinctive_descriptors(seed):
     noise = rng.integers(0, 2**32, base.shape, dtype=np.uint32) & rng.integers(
         0, 2**32, base.shape, dtype=np.uint32) & rng.integers(0, 2**32, base.shape, dtype=np.uint32)
     arrays["kf_desc"] = np.where((pid >= 0)[..., None], base ^ noise, arrays["kf_desc"])
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     for window in ([0, 4, 9, 13], [2, -1, 5, -1, 11, 12]):
         j = jmaint.update_distinctive_descriptors(jm, jnp.asarray(window, jnp.int32), len(window))
         got = tmaint.update_distinctive_descriptors(tm, torch.tensor(window), len(window))

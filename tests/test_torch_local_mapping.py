@@ -135,7 +135,7 @@ def _scene_map(seed, n_kf=5, n_pts=300, linked_frac=0.5, cap=None, cam=CAM, dup_
     (0, 4, [3, 2, -1, 1]), (1, 2, [1, 3, 0, -1]), (2, 4, [-1, -1, -1, -1])])
 def test_triangulate_with_neighbors(seed, kf, nbrs):
     arrays, cap = _scene_map(seed)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     jcap = jms.MapCapacity(**dataclasses.asdict(cap))
     j, jn = jlm.triangulate_with_neighbors(
         jm, JCAM, jnp.asarray(kf, jnp.int32), jnp.asarray(nbrs, jnp.int32), jcap, 4)
@@ -190,7 +190,7 @@ def test_fuse_round(n_cull, seed):
     j = jax.jit(jlm.fuse_round, static_argnames=("cam", "n_nbrs"))(
         jm, JCAM, jnp.asarray(kf, jnp.int32), nbrs, obs, n_nbrs=4,
         dead_mask=jnp.asarray(dead))
-    tm = entry.map_from_numpy(jm)
+    tm = entry.map_from_numpy(jm, "cpu")
     got = tlm.fuse_round(tm, CAM, torch.tensor(kf, dtype=torch.int32),
                          torch.tensor(np.asarray(nbrs)), torch.tensor(np.asarray(obs)), 4)
     assert int(got[1]) == int(j[1])
@@ -230,7 +230,7 @@ def test_fuse_round_matches_sequential_case():
         m["kf_pt_idx"][k, :n] = row
         m["kf_valid"][k] = True
     m["n_kf"], m["n_pt"] = np.int32(3), np.int32(2 * n)
-    jm, tm = jmap(m), entry.map_from_numpy(m)
+    jm, tm = jmap(m), entry.map_from_numpy(m, "cpu")
     obs = jcov.observation_counts(jm)
     j = jax.jit(jlm.fuse_round, static_argnames=("cam", "n_nbrs"))(
         jm, JCAM, jnp.asarray(0, jnp.int32), jnp.asarray([1, 2, -1], jnp.int32), obs, n_nbrs=3)
@@ -279,7 +279,7 @@ def test_cull_keyframes(n_kf, force_ref, lvl_bm, covis, enable):
     culled with 3 keyframes), with and without the level bitmap and a
     precomputed covisibility row, and a disabled cull."""
     arrays = _stacked(n_kf, force_ref=force_ref)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     cur = n_kf - 1
     jkw, tkw = {}, {}
     if lvl_bm:
@@ -312,7 +312,7 @@ def test_cull_points(detach):
     arrays["kf_valid"][5] = False  # a culled keyframe drops out of the ranks
     arrays["pt_first_kf"][:] = rng.integers(0, 100, arrays["pt_first_kf"].size)
     arrays["pt_found"][:] = rng.uniform(0, 10, arrays["pt_found"].size).astype(np.float32)
-    jm, tm = jmap(arrays), entry.map_from_numpy(arrays)
+    jm, tm = jmap(arrays), entry.map_from_numpy(arrays, "cpu")
     for cur in (13, 9):
         j = jlm.cull_points(jm, jnp.asarray(cur, jnp.int32), detach=detach)
         got = tlm.cull_points(tm, torch.tensor(cur, dtype=torch.int32), detach=detach)

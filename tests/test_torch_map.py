@@ -84,12 +84,12 @@ def test_bench_map_equals_bench(n_kf, n_pt, seed):
 
 def test_map_from_numpy_round_trip():
     m = entry.bench_map(ttracking.TrackerConfig(**SMALL_CFG), 10, 200, 1)
-    t = entry.map_from_numpy(m)
+    t = entry.map_from_numpy(m, "cpu")
     assert t.kf_desc.dtype == torch.int32 and t.pt_valid.dtype == torch.bool
     for name, b in zip(t._fields, t):
         np.testing.assert_array_equal(_numpy(name, b), m[name], err_msg=name)
     # a JAX MapState (a NamedTuple) is taken as well
-    t2 = entry.map_from_numpy(_jax_map(m))
+    t2 = entry.map_from_numpy(_jax_map(m), "cpu")
     for a, b in zip(t, t2):
         assert torch.equal(a, b)
 
@@ -104,7 +104,7 @@ def test_build_observer_bitmap():
     )
     assert dup > 0
     j = np.asarray(jcov.build_observer_bitmap(_jax_map(m)))
-    t = tcov.build_observer_bitmap(entry.map_from_numpy(m)).numpy()
+    t = tcov.build_observer_bitmap(entry.map_from_numpy(m, "cpu")).numpy()
     assert t.dtype == np.uint8 and t.shape == j.shape == (m["pt_valid"].size, K)
     np.testing.assert_array_equal(t > 0, j > 0)
     # cells written once hold the level + 1 exactly
@@ -163,7 +163,7 @@ def test_local_keyframe_point_set(case):
         jm, cur, k1, k2 = _bench_case(3 if case == "bench_ties" else 4)
     jbm = jcov.build_observer_bitmap(jm)
     jw, jk, jp = jtracking._local_keyframe_point_set(jm, jbm, jnp.asarray(cur), k1, k2)
-    tm = entry.map_from_numpy(jm)
+    tm = entry.map_from_numpy(jm, "cpu")
     tw, tk, tp = ttracking._local_keyframe_point_set(
         tm, tcov.build_observer_bitmap(tm), torch.from_numpy(cur), k1, k2
     )

@@ -122,7 +122,7 @@ def test_search_by_projection(rng, real_frame, kind):
     T_pred = np.asarray(
         se3_exp(jnp.asarray([0.02, 0.01, -0.02, 0.003, 0.002, -0.004]))
     ) @ T_true
-    args = state_from_numpy(np.zeros((H, W), np.uint8), *scene, T_pred)
+    args = state_from_numpy(np.zeros((H, W), np.uint8), *scene, T_pred, device="cpu")
 
     j = jm.search_by_projection(
         JCam(**CAM_KW), jnp.asarray(T_pred, jnp.float32),
@@ -164,7 +164,7 @@ def test_search_by_projection_local_map_settings(rng, real_frame, kind, max_cand
     T_pred = np.asarray(
         se3_exp(jnp.asarray([0.02, 0.01, -0.02, 0.003, 0.002, -0.004]))
     ) @ T_true
-    args = state_from_numpy(np.zeros((H, W), np.uint8), *scene, T_pred)
+    args = state_from_numpy(np.zeros((H, W), np.uint8), *scene, T_pred, device="cpu")
     pt_ids = rng.permutation(4 * n_pts)[:n_pts].astype(np.int32)
     kw = dict(radius=3.0, ratio=0.8, max_candidates=max_candidates)
 

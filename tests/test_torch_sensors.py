@@ -34,9 +34,9 @@ CFG = ttracking.TrackerConfig(n_features=300, max_keyframes=16, max_points=1024,
 @pytest.mark.parametrize("sensor", ["mono", "stereo", "rgbd"])
 def test_build_and_track_device(sensor):
     scene = entry.tracking_scene(
-        np.random.default_rng(7), sensor, CAM, CFG, 12, 800, disparity=3,
+        np.random.default_rng(7), sensor, CAM, CFG, 12, 800, "cpu", disparity=3,
     )
-    args = entry.scene_inputs(scene)
+    args = entry.scene_inputs(scene, "cpu")
     tframe, touts = ttracking._build_and_track_device(CAM, CFG, sensor, *args)
     jframe, jouts = jtracking._build_and_track_device(
         JCam(**CAM._asdict()), jtracking.TrackerConfig(**dataclasses.asdict(CFG)),

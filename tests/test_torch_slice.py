@@ -72,7 +72,7 @@ def test_tracking_step_small_consistent_scene():
         jnp.asarray(T_pred), 300,
     )
     tT, tn = entry.tracking_step(
-        *entry.state_from_numpy(img, *scene, T_pred), cam=TCam(**kw), n_features=300
+        *entry.state_from_numpy(img, *scene, T_pred, device="cpu"), cam=TCam(**kw), n_features=300
     )
     np.testing.assert_allclose(tT.numpy(), np.asarray(jT), atol=1e-4)
     assert abs(int(tn) - int(jn)) <= 0.01 * int(jn)
@@ -84,7 +84,7 @@ def test_tracking_step_small_consistent_scene():
 def test_tracking_step_full_size_matches_graft_entry():
     args = graft._example_args()
     jT, jn = graft.tracking_step(*args)
-    state = entry.state_from_numpy(*[np.asarray(a) for a in args])
+    state = entry.state_from_numpy(*[np.asarray(a) for a in args], device="cpu")
     tT, tn = entry.tracking_step(*state)
     np.testing.assert_allclose(tT.numpy(), np.asarray(jT), atol=1e-4)
     assert int(tn) == int(jn)

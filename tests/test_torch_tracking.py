@@ -106,7 +106,7 @@ def test_track_frame_device_small_kitti_scene():
     # disparity 24 puts the plane at 16.1 m, inside close_depth (18.8 m)
     scene = entry.kitti_scene(np.random.default_rng(0), "cpu", cfg, 12, 3500,
                               disparity=24)
-    args = entry.scene_inputs(scene)
+    args = entry.scene_inputs(scene, "cpu")
     jargs = _jax_inputs(scene, entry.KITTI_CAM, cfg)
     frame, jframe = args[8], jargs[8]  # the last frame is the frame itself
     touts = ttracking._track_frame_device(
@@ -137,7 +137,7 @@ def test_track_frame_step_kitti_geometry():
         entry.KITTI_CFG, max_keyframes=48, max_points=16384
     )
     scene = entry.kitti_scene(np.random.default_rng(1), "cpu", cfg, 40, 12000)
-    args = entry.scene_inputs(scene)
+    args = entry.scene_inputs(scene, "cpu")
     tframe, touts = entry.track_frame_step(*args, cfg=cfg)
     jcam, jcfg = _jax(entry.KITTI_CAM, cfg)
     jargs = _jax_inputs(scene, entry.KITTI_CAM, cfg)
