@@ -26,8 +26,9 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    card's bf16 BRIEF selection and the CPU's float32 one;
 5. timing on the mono frame: each kernel alone (its C entry point on
    prepared buffers, 100 launches between two CUDA events after
-   warm-up), per call through its wrapper and its plain version the
-   same way; the step in ms per frame (CUDA events, median of 30);
+   warm-up), per call through its wrapper, its plain version and, for
+   patch_gather, the library call (as in [9]) the same way; the step
+   in ms per frame (CUDA events, median of 30);
 6. the main path, one KITTI stereo frame through `track_frame_step` on
    `entry.kitti_scene`: exactly 3 patch_gather (left ORB, right ORB,
    both SAD sides) and 2 pose_opt launches, the local-map pose within
@@ -79,7 +80,25 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    frame id 99): a full and a light insert, in turns, CUDA events and
    host wall (medians of 20 after warm-up), and the amortized KITTI ms/frame,
    track_frame_step + (full + 3 light) / 4 / KF_EVERY with KF_EVERY
-   read from runs/kitti00_full/summary.json.
+   read from runs/kitti00_full/summary.json (a JAX run), and again with
+   the port's own cadence from [12];
+12. a whole KITTI sequence through `System` on the card: 30 stereo
+   frames of `entry.kitti_sequence` (the insert scene's bands, 1.07 m
+   per view) from an empty map at K = 384, P = 131072, async backend:
+   stereo initialization on frame 0, 0 lost frames, >= 3 keyframes
+   chosen by the Tracker itself, the exported trajectory's ATE against
+   the exact poses <= 0.05 m, 3 + 2 launches on every tracked frame, a
+   checkpoint that loads into a fresh System with equal keyframe poses;
+   the first 5 frames again on the card and on the CPU port (async
+   backend off): states and keyframe ids equal, poses within 1e-3.
+   Prints track_stereo per frame (median and p90, CUDA events and host
+   wall), the mean per frame over the sequence with its inserts, the
+   keyframes, the cadence and the launches per frame;
+13. the synthetic TUM mono recipe of .claude/skills/verify/SKILL.md
+   (320x240, 160 landmarks, 15 frames, its tracker overrides), built in
+   memory and driven through `cli.run`: >= 4 keyframes, 0 lost, ATE <=
+   0.2 m; after --load-checkpoint --localization-only the keyframe
+   count stays frozen.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -196,6 +215,220 @@ def _card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def _unfold_gathers(gathers) -> list:
+    """Kernel 1's library yardstick: for each image of each (images, xy,
+    counts) launch, its [H-37, W-37, 38, 38] unfold view and the clipped
+    window corners of its keypoints, computed beforehand; one advanced
+    index per image then gathers the windows (the port never calls it)."""
+    out = []
+    for images, xy, counts in gathers:
+        start = 0
+        for img, n in zip(images, counts):
+            h, w = img.shape
+            seg = xy[start : start + n]
+            start += n
+            x0 = (seg[:, 0].round().long() - 19).clamp(0, w - 38)
+            y0 = (seg[:, 1].round().long() - 19).clamp(0, h - 38)
+            out.append((img.unfold(0, 38, 1).unfold(1, 38, 1), y0, x0))
+    return out
+
+
+def _launch_counts() -> dict:
+    from orb_slam2_test_tpu_torch.ops import patches
+    from orb_slam2_test_tpu_torch.solvers import pose_opt_cuda
+
+    return {"patch_gather": patches.PATCH_GATHER.launches,
+            "pose_opt": pose_opt_cuda.POSE_OPT.launches}
+
+
+def _zero_launches() -> None:
+    from orb_slam2_test_tpu_torch.ops import patches
+    from orb_slam2_test_tpu_torch.solvers import pose_opt_cuda
+
+    patches.PATCH_GATHER.launches = 0
+    pose_opt_cuda.POSE_OPT.launches = 0
+
+
+def _ate(traj, T_true) -> dict:
+    """ATE of an exported trajectory [(t, Tcw)] against exact Tcw poses,
+    matched by index (the timestamps are the frames')."""
+    from orb_slam2_test_tpu_torch.evaluation import absolute_trajectory_error
+
+    gt = [(t, np.linalg.inv(T)) for (t, _), T in zip(traj, T_true)]
+    return absolute_trajectory_error(traj, gt)
+
+
+def _kitti_sequence_phase(dev, card: str) -> dict:
+    """[12]: 30 KITTI stereo frames through System from an empty map, on
+    the card; the first 5 again on the card and the CPU, sync backend."""
+    import tempfile
+
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+
+    n_frames = 30
+    seq = entry.kitti_sequence(np.random.default_rng(SEED + 4), n_frames, dev)
+    system = entry.kitti_system(dev)
+    tracker = system.tracker
+    cfg = tracker.cfg
+    print(f"[12] KITTI sequence: {n_frames} stereo frames {entry.KITTI_CAM.width}x"
+          f"{entry.KITTI_CAM.height}, {cfg.n_features} features, K={cfg.max_keyframes} "
+          f"P={cfg.max_points}, from an empty map, async_backend={cfg.async_backend}")
+    torch.cuda.synchronize()
+    states, fused, per_frame, events, wall_ms = [], [], [], [], []
+    _zero_launches()
+    t_seq = time.perf_counter()
+    for frame in seq.frames:
+        before = _launch_counts()
+        fused.append(tracker._fused_applicable())
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        entry.sequence_step(system, frame)
+        end.record()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        after = _launch_counts()
+        per_frame.append(tuple(after[k] - before[k] for k in ("patch_gather", "pose_opt")))
+        states.append(system.tracking_state)
+        events.append((start, end))
+    system.shutdown()
+    mean_ms = (time.perf_counter() - t_seq) * 1e3 / n_frames
+    launches = _launch_counts()
+    ev_ms = [s_.elapsed_time(e_) for s_, e_ in events]
+    stats = tracker.stats
+    n_kf = stats["n_kf"]
+    traj = tracker.export_trajectory()
+    ate = _ate(traj, seq.T_true)
+    max_err = max(float(np.abs(T - seq.T_true[i])[:3, 3].max()) for i, (_, T) in enumerate(traj))
+    kf_ids = sorted(tracker.map.kf_frame_id[tracker.map.kf_valid].tolist())
+
+    def pct(x, q):
+        return float(np.percentile(np.asarray(x), q))
+
+    out = {
+        "frames": n_frames, "keyframes": n_kf, "live_keyframes": tracker.n_live_kf,
+        "keyframe_frame_ids": kf_ids, "lost_frames": stats["lost_frames"],
+        "cadence_frames_per_kf": n_frames / max(n_kf, 1),
+        "ate_rmse_m": ate["rmse"], "max_translation_error_m": max_err,
+        "track_stereo_ms_median": pct(ev_ms, 50), "track_stereo_ms_p90": pct(ev_ms, 90),
+        "track_stereo_wall_ms_median": pct(wall_ms, 50),
+        "track_stereo_wall_ms_p90": pct(wall_ms, 90),
+        "mean_wall_ms_per_frame_with_inserts": mean_ms,
+        "launches_per_frame": [list(x) for x in per_frame], "launches": launches,
+        "n_pt": int(tracker.map.n_pt),
+    }
+    print(f"    states {''.join(x[0] for x in states)}, {n_kf} keyframes (frame ids "
+          f"{kf_ids}), {stats['lost_frames']} lost, cadence "
+          f"{out['cadence_frames_per_kf']:.3f} frames per keyframe, {out['n_pt']} points; "
+          f"ATE {ate['rmse']:.4e} m over {ate['n_pairs']} frames, largest translation "
+          f"error {max_err:.4e} m")
+    print(f"[12] track_stereo: median {out['track_stereo_ms_median']:.3f} ms, p90 "
+          f"{out['track_stereo_ms_p90']:.3f} ms per frame on CUDA events; median "
+          f"{out['track_stereo_wall_ms_median']:.3f} ms, p90 "
+          f"{out['track_stereo_wall_ms_p90']:.3f} ms host wall; mean over the sequence "
+          f"with its inserts {mean_ms:.3f} ms/frame host wall ({card})")
+    print(f"    launches per frame (patch_gather, pose_opt): {per_frame}; total {launches}; "
+          f"{sum(fused)} frames built and tracked in one call")
+    _check(states[0] == "OK", f"stereo initialization on frame 0: {states[0]}")
+    _check(stats["lost_frames"] == 0, f"{stats['lost_frames']} lost frames")
+    _check(n_kf >= 3, f"{n_kf} keyframes")
+    _check(ate["n_pairs"] == n_frames and ate["rmse"] <= 0.05, f"ATE {ate}")
+    _check(per_frame[0] == (3, 0), f"initializing frame launches {per_frame[0]}")
+    # every tracked frame, fused (build and track in one call) or not
+    _check(all(pf == (3, 2) for pf in per_frame[1:]), f"tracked frames' launches {per_frame}")
+    _check(sum(fused) >= n_frames // 2, f"{sum(fused)} fused frames")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "kitti.npz")
+        system.save_checkpoint(path)
+        again = entry.kitti_system(dev)
+        again.load_checkpoint(path)
+        _check(torch.equal(again.tracker.map.kf_Tcw, tracker.map.kf_Tcw),
+               "checkpoint: kf_Tcw differs after load")
+        _check(again.tracker.n_live_kf == tracker.n_live_kf, "checkpoint: live keyframes")
+    print(f"    checkpoint saved and loaded into a fresh System: kf_Tcw equal, "
+          f"{tracker.n_live_kf} live keyframes")
+
+    # the first 5 frames on the card and on the CPU port, sync backend
+    runs = {}
+    for where in (dev, "cpu"):
+        sub = entry.kitti_system(where, async_backend=False)
+        frames = [(t, a.to(where), b.to(where)) for t, a, b in seq.frames[:5]]
+        poses = [entry.sequence_step(sub, f) for f in frames]
+        runs[str(where)] = (sub, poses)
+    (card_sys, card_poses), (cpu_sys, cpu_poses) = runs[str(dev)], runs["cpu"]
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(card_poses, cpu_poses))
+    ids = [sorted(x.tracker.map.kf_frame_id[x.tracker.map.kf_valid].tolist())
+           for x in (card_sys, cpu_sys)]
+    print(f"    first 5 frames, card vs CPU port (sync backend): states "
+          f"{card_sys.tracker.stats} / {cpu_sys.tracker.stats}, keyframe ids {ids[0]} / "
+          f"{ids[1]}, poses within {gap:.3e}")
+    _check(card_sys.tracking_state == cpu_sys.tracking_state == "OK", "5-frame states")
+    _check(card_sys.tracker.stats == cpu_sys.tracker.stats, "5-frame stats differ")
+    _check(ids[0] == ids[1], f"keyframe ids {ids}")
+    _check(gap <= 1e-3, f"card vs CPU poses differ by {gap}")
+    out["card_vs_cpu_pose_gap_5_frames"] = gap
+    return out
+
+
+def _tum_mono_phase(dev, card: str) -> dict:
+    """[13]: SKILL.md's synthetic TUM mono recipe through cli.run."""
+    import tempfile
+
+    from orb_slam2_test_tpu_torch import cli
+    from orb_slam2_test_tpu_torch.io.datasets import MemorySequence
+    from orb_slam2_test_tpu_torch.io.settings import SlamSettings
+    from orb_slam2_test_tpu_torch.io.trajectory import save_trajectory_tum
+    from orb_slam2_test_tpu_torch.system import System
+    from orb_slam2_test_tpu_torch.utils.synthetic import default_camera, make_sequence
+
+    n = 15
+    cam = default_camera(320, 240)
+    cam, poses_gt, _, images = make_sequence(
+        np.random.default_rng(0), n, cam=cam, n_landmarks=160,
+        step=np.array([0.12, 0.01, 0.0, 0.001, 0.003, 0.001]))
+    stamps = [1000.0 + 0.1 * i for i in range(n)]
+    # the recipe writes 8-bit PNGs
+    frames = [(t, np.clip(im, 0, 255).astype(np.uint8)) for t, im in zip(stamps, images)]
+    settings = SlamSettings(
+        fx=cam.fx, fy=cam.fy, cx=cam.cx, cy=cam.cy, width=320, height=240, fps=10.0,
+        n_features=400, max_keyframes=32, max_points=4096, min_init_matches=40,
+        min_init_triangulated=30, min_local_inliers=20, n_triangulate_neighbors=2,
+        ba_fixed_cap=4, max_frames_between_kf=4)
+    with tempfile.TemporaryDirectory() as d:
+        gt = os.path.join(d, "groundtruth.txt")
+        save_trajectory_tum(gt, list(zip(stamps, poses_gt)))
+
+        def run(*extra):
+            args = cli.common_parser("").parse_args(
+                ["(in memory)", "(in memory)", "--groundtruth", gt,
+                 "--traj-out", os.path.join(d, "traj.txt"),
+                 "--kf-traj-out", os.path.join(d, "kf.txt"), *extra])
+            return cli.run(System(settings, "monocular", device=dev),
+                           MemorySequence("mono", frames), args, log=lambda *a: None)
+
+        _zero_launches()
+        first = run("--checkpoint-out", os.path.join(d, "map.npz"))
+        launches = _launch_counts()
+        again = run("--load-checkpoint", os.path.join(d, "map.npz"), "--localization-only")
+    print(f"[13] TUM mono recipe (320x240, 160 landmarks, {n} frames) through cli.run: "
+          f"{first['keyframes']} keyframes, {first['lost_frames']} lost, ATE "
+          f"{first['ate_rmse']:.4f} m over {first['ate_pairs']} pairs, median "
+          f"{first['median_s'] * 1e3:.3f} ms/frame host wall ({card}); launches {launches}; "
+          f"after --load-checkpoint --localization-only: {again['keyframes']} keyframes, "
+          f"{again['lost_frames']} lost")
+    _check(first["keyframes"] >= 4 and first["lost_frames"] == 0, f"TUM mono run {first}")
+    _check(np.isfinite(first["ate_rmse"]) and first["ate_rmse"] <= 0.2,
+           f"TUM mono ATE {first['ate_rmse']}")
+    _check(again["keyframes"] == first["keyframes"], "localization-only inserted keyframes")
+    _check(launches["patch_gather"] == n and launches["pose_opt"] > 0, f"launches {launches}")
+    return {"keyframes": first["keyframes"], "lost_frames": first["lost_frames"],
+            "ate_rmse_m": first["ate_rmse"], "median_wall_ms": first["median_s"] * 1e3,
+            "localization_only_keyframes": again["keyframes"], "launches": launches}
 
 
 def _bins(angle: np.ndarray) -> np.ndarray:
@@ -339,19 +572,25 @@ def main() -> int:
     _check(flips.max() <= 3, f"{flips.max()} flipped bits")
 
     # -- 5. timing -------------------------------------------------------
+    mono_library = _unfold_gathers([(pyr, mono_xy, budgets)])
+    _check(torch.equal(torch.cat([v[y0, x0] for v, y0, x0 in mono_library]),
+                       patches.extract_raw_patches_levels_plain(pyr, mono_xy, budgets)),
+           "the unfold indexing differs from the plain gather (mono)")
     g_args, _ = patches.gather_launch_args(pyr, mono_xy, budgets)
     p_args, _ = pose_opt_cuda.pose_opt_launch_args(cam_p, *pose_args)
-    times = {  # (alone, per call through the wrapper, plain)
+    times = {  # (alone, per call through the wrapper, plain, library)
         "patch_gather": (
             _loop_ms(lambda: patches.PATCH_GATHER(*g_args)),
             _loop_ms(lambda: patches.extract_raw_patches_levels(pyr, mono_xy, budgets)),
             _loop_ms(lambda: patches.extract_raw_patches_levels_plain(pyr, mono_xy, budgets)),
+            _loop_ms(lambda: [v[y0, x0] for v, y0, x0 in mono_library]),
         ),
         "pose_opt": (
             _loop_ms(lambda: pose_opt_cuda.POSE_OPT(*p_args)),
             _loop_ms(lambda: pose_opt.pose_optimization(cam_p, *pose_args)),
             _loop_ms(lambda: pose_opt._pose_optimization_plain(cam_p, *pose_args),
                      n=5, warmup=1),
+            None,
         ),
     }
     step_ms_mono = _cuda_ms(lambda: entry.tracking_step(*state_card))
@@ -362,11 +601,12 @@ def main() -> int:
     step_wall_ms = (time.perf_counter() - t0) * 1e3 / N_TIMED
     bounds_mono = {"patch_gather": _bound(_gather_bytes(pyr, mono_xy), 0),
                    "pose_opt": _pose_bound(pose_args[1], pose_args[4])}
-    for name, (k_ms, c_ms, p_ms) in times.items():
+    for name, (k_ms, c_ms, p_ms, l_ms) in times.items():
         b_ms, b_by = bounds_mono[name]
+        lib = "n/a" if l_ms is None else f"{l_ms:.4f} ms"
         print(f"[5] {name}: alone {k_ms:.4f} ms, per call {c_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms; bound {b_ms:.6f} ms ({b_by}), {b_ms / k_ms:.2%} of it "
-              f"alone (one launch: the mono frame's 8 levels / O = {O}; {card})")
+              f"{p_ms:.4f} ms, library {lib}; bound {b_ms:.6f} ms ({b_by}), {b_ms / k_ms:.2%} "
+              f"of it alone (one launch: the mono frame's 8 levels / O = {O}; {card})")
     print(f"[5] tracking_step: {step_ms_mono:.3f} ms/frame on CUDA events, "
           f"{step_wall_ms:.3f} ms/frame host wall ({card})")
 
@@ -506,16 +746,7 @@ def main() -> int:
     # kernel 1's library yardstick: one advanced index into the
     # [H-37, W-37, 38, 38] unfold view per image, at corners computed
     # beforehand (the port never calls it)
-    library_gathers = []
-    for images, xy, counts in frame_gathers:
-        start = 0
-        for img, n in zip(images, counts):
-            h, w = img.shape
-            seg = xy[start : start + n]
-            start += n
-            x0 = (torch.round(seg[:, 0]).long() - 19).clamp(0, w - 38)
-            y0 = (torch.round(seg[:, 1]).long() - 19).clamp(0, h - 38)
-            library_gathers.append((img.unfold(0, 38, 1).unfold(1, 38, 1), y0, x0))
+    library_gathers = _unfold_gathers(frame_gathers)
 
     def library_frame():
         return [view[y0, x0] for view, y0, x0 in library_gathers]
@@ -788,8 +1019,20 @@ def main() -> int:
     print(f"[11] amortized KITTI: {amortized[0]:.3f} ms/frame on CUDA events, "
           f"{amortized[1]:.3f} ms/frame host wall (track_frame_step + (full + "
           f"{R - 1} light) / {R} / {kf_every:.4f}; {card})")
+    seq_stats = _kitti_sequence_phase(dev, card)
+    # [11]'s formula with the port's own cadence in place of the JAX run's
+    port_every = seq_stats["cadence_frames_per_kf"]
+    amortized_port = {
+        i: step_ms["track_frame_step"][i]
+        + (insert_ms["full"][i] + (R - 1) * insert_ms["light"][i]) / R / port_every
+        for i in (0, 1)
+    }
+    print(f"[11] amortized KITTI with the port's cadence from [12], {port_every:.4f} frames "
+          f"per keyframe (the JAX run's: {kf_every:.4f}): {amortized_port[0]:.3f} ms/frame "
+          f"on CUDA events, {amortized_port[1]:.3f} ms/frame host wall ({card})")
+    mono_stats = _tum_mono_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[11] phases 1-11 took {run_s:.1f} s, the kernels' build included")
+    print(f"[13] phases 1-13 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -815,7 +1058,9 @@ def main() -> int:
                     "kernel_ms": "ms: the kernel alone"},
         "launches_by_path": {"mono_tracking_step": launches,
                              "kitti_stereo": k_launches, "rgbd": r_launches,
-                             "kitti_insert_sequence": ins_launches},
+                             "kitti_insert_sequence": ins_launches,
+                             "kitti_sequence": seq_stats["launches"],
+                             "tum_mono_sequence": mono_stats["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -825,6 +1070,10 @@ def main() -> int:
         "kitti_amortized_ms_per_frame": amortized[0],
         "kitti_amortized_wall_ms_per_frame": amortized[1],
         "kf_every": kf_every,
+        "kitti_amortized_port_cadence_ms_per_frame": amortized_port[0],
+        "kitti_amortized_port_cadence_wall_ms_per_frame": amortized_port[1],
+        "kitti_sequence": {k: v for k, v in seq_stats.items() if k != "launches"},
+        "tum_mono_sequence": {k: v for k, v in mono_stats.items() if k != "launches"},
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

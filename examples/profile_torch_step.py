@@ -1,6 +1,7 @@
 """Where the time of the PyTorch port's tracking step goes, on one GPU.
 
-    python3 examples/profile_torch_step.py [--path mono|kitti-stereo|kitti-insert]
+    python3 examples/profile_torch_step.py
+        [--path mono|kitti-stereo|kitti-insert|kitti-sequence]
         [--steps 10] [--out runs/profile_torch_step]
 
 Runs one of the port's entry points under torch.profiler after a
@@ -14,7 +15,11 @@ warm-up:
 - kitti-insert: `entry.grow_map_step`, one full and one light keyframe
   insert at the JAX bench's inputs (its bench map at the KITTI
   configuration, a frame of two random images, T = I, random links,
-  frame id 99), each profiled on its own.
+  frame id 99), each profiled on its own;
+- kitti-sequence: one step is a whole `entry.kitti_sequence` of 30
+  stereo frames through a fresh `entry.kitti_system` (the host Tracker:
+  initialization, the fused frames, its own keyframe inserts), so the
+  per-frame figures are the step's over 30.
 It reports per step: host wall time, device busy time (the union of the
 kernels' intervals), the device's idle share, the number of kernel
 launches, and the kernels and operators with the most device time.
@@ -96,7 +101,8 @@ def profile_steps(step, steps: int, card: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["mono", "kitti-stereo", "kitti-insert"], default="mono")
+    ap.add_argument("--path", choices=["mono", "kitti-stereo", "kitti-insert", "kitti-sequence"],
+                    default="mono")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="runs/profile_torch_step")
     args = ap.parse_args()
@@ -124,6 +130,16 @@ def main() -> int:
     elif args.path == "kitti-stereo":
         inputs = entry.scene_inputs(entry.kitti_scene(rng, dev), dev)
         steps["kitti-stereo"] = lambda: entry.track_frame_step(*inputs)
+    elif args.path == "kitti-sequence":
+        seq = entry.kitti_sequence(rng, 30, dev)
+
+        def run_sequence():
+            system = entry.kitti_system(dev)
+            for frame in seq.frames:
+                entry.sequence_step(system, frame)
+            system.shutdown()
+
+        steps["kitti-sequence"] = run_sequence
     else:
         cam, cfg = entry.KITTI_CAM, entry.KITTI_CFG
         m = entry.map_from_numpy(entry.bench_map(cfg, entry.KITTI_N_KF, entry.KITTI_N_PT), dev)

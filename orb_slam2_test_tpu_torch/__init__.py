@@ -8,14 +8,19 @@ dtypes, except that packed descriptors are int32 bit patterns [N, 8]
 (torch has no uint32 shifts).
 
 Layout:
-  geometry/   pinhole camera, SE3, robust-loss constants
+  geometry/   pinhole camera, SE3, robust-loss constants, triangulation
   ops/        pyramid, FAST, BRIEF, patch gather (CUDA kernel 1),
-              ORB extraction, Hamming matching
-  engine/     frame construction, projection matching
-  solvers/    reprojection residuals, motion-only BA (CUDA kernel 2)
-  utils/      nvcc + ctypes builder, precision flags
+              ORB extraction, stereo matching, Hamming matching
+  engine/     frames, matchers, the per-frame and keyframe-insertion
+              programs and the host Tracker, local mapping
+  slam_map/   the map state, covisibility, maintenance
+  solvers/    motion-only BA (CUDA kernel 2), local BA, initialization
+  io/         settings, datasets, trajectories, checkpoints
+  evaluation/ ATE / RPE
+  utils/      nvcc + ctypes builder, precision flags, synthetic scenes
   csrc/       CUDA C++ sources, built at first use into _build/
-  entry.py    the per-frame tracking step and its test scenes
+  system.py   the System facade; cli.py the command-line driver
+  entry.py    the paths chip_smoke.py drives and their scenes
 
 Every function takes tensors on one device. A CPU tensor runs the
 plain PyTorch version of each kernel; a CUDA tensor launches the

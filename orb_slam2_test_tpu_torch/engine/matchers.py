@@ -1,14 +1,15 @@
 """Projection and triangulation matching.
 
-Port of `search_by_projection`, `_resolve_conflicts` and
-`search_for_triangulation` from orb_slam2_test_tpu/engine/matchers.py
-(reference: ORBmatcher.cc SearchByProjection, SearchForTriangulation).
-Every map point is projected, gated (validity, frustum, distance range,
-view angle, predicted octave, window radius) and matched through one
-masked [P, N] Hamming matrix; conflicts where several points pick one
-feature go to the smallest (distance, point row). Not ported yet:
-`search_for_initialization`, `match_by_descriptor_to_map`,
-`search_by_bow` and `search_by_sim3` (the host tracker and loop
+Port of `search_by_projection`, `_resolve_conflicts`,
+`search_for_initialization`, `search_for_triangulation` and
+`match_by_descriptor_to_map` from orb_slam2_test_tpu/engine/matchers.py
+(reference: ORBmatcher.cc SearchByProjection, SearchForInitialization,
+SearchForTriangulation, and SearchByBoW for reference-keyframe
+tracking). Every map point is projected, gated (validity, frustum,
+distance range, view angle, predicted octave, window radius) and
+matched through one masked [P, N] Hamming matrix; conflicts where
+several points pick one feature go to the smallest (distance, point
+row). Not ported yet: `search_by_bow` and `search_by_sim3` (loop
 closing).
 """
 
@@ -28,6 +29,7 @@ from orb_slam2_test_tpu_torch.ops.matching import (
     TH_LOW,
     best_two,
     masked_hamming_matrix,
+    rotation_consistency,
 )
 
 _INT32_MAX = torch.iinfo(torch.int32).max
@@ -176,6 +178,62 @@ def search_by_projection(
         buf = torch.full((P + 1,), -1, dtype=torch.int32, device=pt_feat.device)
         buf[torch.where(usable, sel, P)] = pt_feat
         pt_feat = buf[:P]
+    return ProjectionMatch(
+        feat_pt=feat_pt,
+        pt_feat=pt_feat,
+        n_matches=(feat_pt >= 0).sum(dtype=torch.int32),
+    )
+
+
+def search_for_initialization(
+    f1: FrameData,
+    f2: FrameData,
+    window: int = 100,
+    max_hamming: int = TH_LOW,
+    ratio: float = 0.9,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Window-constrained matching between the two frames of monocular
+    initialization (ORBmatcher::SearchForInitialization: level-0
+    features, window 100, ratio 0.9, rotation histogram, cross check).
+    Returns (match12 [N1] int32 -> index in f2 or -1, n_matches).
+    argmin takes the first minimum, as jnp.argmax of the negation does."""
+    lvl0_1 = (f1.level == 0) & f1.valid
+    lvl0_2 = (f2.level == 0) & f2.valid
+    d = masked_hamming_matrix(f1.desc, f2.desc, lvl0_1, lvl0_2)
+    du = f1.uv[:, None, 0] - f2.uv[None, :, 0]
+    dv = f1.uv[:, None, 1] - f2.uv[None, :, 1]
+    d = torch.where((du.abs() <= window) & (dv.abs() <= window), d, 512)
+
+    best_idx, best, second = best_two(d)
+    ok = (best <= max_hamming) & (best.to(torch.float32) < ratio * second.to(torch.float32))
+    m12 = rotation_consistency(torch.where(ok, best_idx, -1), f1.angle, f2.angle)
+
+    # cross check: the chosen f2 feature's best f1 feature is this one
+    best21 = d.argmin(dim=0)
+    rows = torch.arange(m12.shape[0], device=d.device)
+    agree = best21[m12.clamp(min=0).to(torch.int64)] == rows
+    m12 = torch.where((m12 >= 0) & agree, m12, -1).to(torch.int32)
+    return m12, (m12 >= 0).sum(dtype=torch.int32)
+
+
+def match_by_descriptor_to_map(
+    frame: FrameData,
+    pts_desc: torch.Tensor,  # [P, 8] int32
+    pts_valid: torch.Tensor,  # [P]
+    pt_ids: torch.Tensor,  # [P]
+    max_hamming: int = TH_LOW,
+    ratio: float = 0.7,
+) -> ProjectionMatch:
+    """Brute-force descriptor match of a point set to the frame, no
+    geometry: the counterpart of SearchByBoW(KeyFrame*, Frame&) in
+    TrackReferenceKeyFrame (the BoW feature vector only narrows the
+    candidates of a descriptor nearest neighbour with ratio 0.7)."""
+    d = masked_hamming_matrix(pts_desc, frame.desc, pts_valid, frame.valid)
+    best_idx, best, second = best_two(d)
+    ok = (best <= max_hamming) & (best.to(torch.float32) < ratio * second.to(torch.float32))
+    feat_pt, pt_feat = _resolve_conflicts(
+        torch.where(ok, best_idx, -1), best, frame.uv.shape[0], pt_ids.to(torch.int32)
+    )
     return ProjectionMatch(
         feat_pt=feat_pt,
         pt_feat=pt_feat,

@@ -17,6 +17,9 @@ Entry points:
 - `tracking_step` is the port of `__graft_entry__.tracking_step`: ORB
   extraction, projection matching of a local map, and motion-only BA,
   the mono hot path of slice 1.
+- `sequence_step` tracks one stereo frame of a sequence through
+  `System.track_stereo`: the host Tracker's whole decision (fused
+  program, keyframe decision, insert) on a map it built itself.
 
 Scenes: `kitti_scene` builds a stereo pair and a map at KITTI capacity
 that the frame really observes; `kitti_insert_scene` three views of four
@@ -50,8 +53,10 @@ from orb_slam2_test_tpu_torch.engine.tracking import (
 )
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp
+from orb_slam2_test_tpu_torch.io.settings import SlamSettings
 from orb_slam2_test_tpu_torch.slam_map.covisibility import build_observer_bitmap
 from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState, make_empty_map
+from orb_slam2_test_tpu_torch.system import System
 from orb_slam2_test_tpu_torch.solvers.pose_opt import pose_optimization
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
 
@@ -279,7 +284,7 @@ def bench_map(cfg: TrackerConfig, n_kf: int, n_pt: int, seed: int = 0) -> dict:
     rng = np.random.default_rng(seed)
     cap = cfg.map_capacity
     K, N, P = cap.max_keyframes, cap.max_features, cap.max_points
-    m = {k: v.numpy() for k, v in make_empty_map(cap)._asdict().items()}
+    m = {k: v.numpy() for k, v in make_empty_map(cap, "cpu")._asdict().items()}
     for k in ("kf_desc", "pt_desc"):
         m[k] = m[k].view(np.uint32)
     cam = KITTI_CAM
@@ -547,6 +552,30 @@ class InsertScene(NamedTuple):
     n_scene: int
 
 
+def _band_views(rng: np.random.Generator, h: int, w: int, n_views: int, z0: float):
+    """Four horizontal bands of one seeded texture, band b a
+    fronto-parallel plane at z0 * 19 / d_b for d_b in INSERT_DISPARITIES,
+    from the farthest at the top. The texture is w + (2 n - 1) * max(d_b)
+    pixels wide; view i shows it shifted by 2 i d_b pixels in band b and
+    its right image by d_b more. Returns ([(image, right image)] uint8
+    [h, w] per view, the true depth [h, w])."""
+    disp = np.asarray(INSERT_DISPARITIES)
+    bands = np.array_split(np.arange(h), disp.size)
+    tex = texture_image(rng, h, w + (2 * n_views - 1) * int(disp.max()))
+    depth = np.empty((h, w), np.float32)
+    for rows, d in zip(bands, disp):
+        depth[rows] = z0 * STEREO_DISPARITY / d
+    views = []
+    for i in range(n_views):
+        img, right = np.empty((h, w), np.uint8), np.empty((h, w), np.uint8)
+        for rows, d in zip(bands, disp):
+            cols = 2 * i * d + np.arange(w)
+            img[rows] = tex[rows][:, cols]
+            right[rows] = tex[rows][:, cols + d]
+        views.append((img, right))
+    return views, depth
+
+
 def insert_scene(
     rng: np.random.Generator,
     sensor: str,
@@ -573,25 +602,12 @@ def insert_scene(
     second keypoint linked to a point, so the others are free to be
     triangulated against the next keyframe; no other keyframe observes
     the scene's points."""
-    h, w = cam.height, cam.width
     if sensor not in ("mono", "stereo", "rgbd"):
         raise ValueError(f"sensor must be mono, stereo or rgbd, got {sensor!r}")
-    disp = np.asarray(INSERT_DISPARITIES)
     z0 = cam.bf / STEREO_DISPARITY if sensor == "stereo" else SCENE_DEPTH
-    bands = np.array_split(np.arange(h), disp.size)
-    tex = texture_image(rng, h, w + 5 * int(disp.max()))
-    depth = np.empty((h, w), np.float32)
-    for rows, d in zip(bands, disp):
-        depth[rows] = z0 * STEREO_DISPARITY / d
-    views = []
-    for i in range(3):
-        img, right = np.empty((h, w), np.uint8), np.empty((h, w), np.uint8)
-        for rows, d in zip(bands, disp):
-            cols = 2 * i * d + np.arange(w)
-            img[rows] = tex[rows][:, cols]
-            right[rows] = tex[rows][:, cols + d]
-        img_b = {"stereo": right, "rgbd": depth, "mono": None}[sensor]
-        views.append((img, img_b))
+    pairs, depth = _band_views(rng, cam.height, cam.width, 3, z0)
+    views = [(img, {"stereo": right, "rgbd": depth, "mono": None}[sensor])
+             for img, right in pairs]
     frame = _view_frame(*views[0], sensor, cam, cfg, device)
     step = np.eye(4, dtype=np.float32)
     step[0, 3] = -2 * STEREO_DISPARITY * z0 / cam.fx
@@ -737,3 +753,67 @@ def grow_map_step(
         cam, cfg, m, obs_bm, frame, Tcw, feat_pt, timestamp, frame_id,
         close_depth, use_depth=True, close_gate=True, rebuild=rebuild,
     )
+
+
+class BandSequence(NamedTuple):
+    """A stereo sequence of `insert_scene`'s four bands:
+
+    frames   n (timestamp, left, right): uint8 [H, W] images on a device
+    T_true   n true poses [4, 4] (Tcw, view 0 at the identity)
+    """
+
+    frames: list
+    T_true: list
+
+
+def band_sequence(
+    rng: np.random.Generator,
+    cam: PinholeCamera,
+    n_frames: int,
+    device: torch.device | str = "cuda",
+    fps: float = 10.0,
+) -> BandSequence:
+    """`insert_scene`'s stereo scene carried over n_frames views
+    (`_band_views` with z0 = bf / 19), so every image is an exact
+    integer shift and the camera moves 2 bf / fx sideways per view
+    (1.07 m at KITTI), exactly, from T_true[0] = I."""
+    z0 = cam.bf / STEREO_DISPARITY
+    views, _ = _band_views(rng, cam.height, cam.width, n_frames, z0)
+    step = np.eye(4)
+    step[0, 3] = -2 * STEREO_DISPARITY * z0 / cam.fx
+    frames = [(i / fps, _to_device(left, device), _to_device(right, device))
+              for i, (left, right) in enumerate(views)]
+    T_true = [np.linalg.matrix_power(step, i) for i in range(n_frames)]
+    return BandSequence(frames=frames, T_true=T_true)
+
+
+def kitti_sequence(
+    rng: np.random.Generator, n_frames: int, device: torch.device | str = "cuda"
+) -> BandSequence:
+    """`band_sequence` at KITTI geometry (1241x376, bands at 20.3-48.3 m,
+    1.07 m per view, 10 fps). The map starts empty: the Tracker
+    initializes it from the first stereo frame."""
+    return band_sequence(rng, KITTI_CAM, n_frames, device)
+
+
+def kitti_system(device: torch.device | str = "cuda", **overrides) -> System:
+    """A stereo System at the bench's KITTI configuration (KITTI_CAM and
+    KITTI_CFG's 2000 features, K = 384, P = 131,072 and caps of 8192),
+    from an empty map; as for any settings, at most fps = 10 frames pass
+    between keyframes. `overrides` are TrackerConfig fields."""
+    c = KITTI_CFG
+    settings = SlamSettings(
+        fx=KITTI_CAM.fx, fy=KITTI_CAM.fy, cx=KITTI_CAM.cx, cy=KITTI_CAM.cy,
+        bf=KITTI_CAM.bf, width=KITTI_CAM.width, height=KITTI_CAM.height, fps=10.0,
+        n_features=c.n_features, max_keyframes=c.max_keyframes, max_points=c.max_points,
+        local_pt_cap=c.local_pt_cap, ba_pt_cap=c.ba_pt_cap,
+    )
+    return System(settings, "stereo", device=device, **overrides)
+
+
+def sequence_step(system: System, frame: tuple):
+    """Track one stereo frame (timestamp, left, right) of a sequence
+    through `System.track_stereo`. Returns the pose (Tcw, numpy) or None
+    when lost."""
+    t, left, right = frame
+    return system.track_stereo(left, right, t)

@@ -9,8 +9,8 @@ bit patterns (the JAX package stores uint32).
 
 The mutating operations are functional, as in the JAX package: each
 returns a new MapState and leaves its argument as it was; fields it
-does not change are shared. `grow_map` (re-bucketing into larger
-capacities) belongs to the host tracker and is not ported yet.
+does not change are shared. `grow_map` re-buckets a map into larger
+capacities for the host tracker.
 """
 
 from __future__ import annotations
@@ -94,8 +94,10 @@ class MapState(NamedTuple):
 
 
 def make_empty_map(
-    cap: MapCapacity, device: torch.device | str = "cpu"
+    cap: MapCapacity, device: torch.device | str = "cuda"
 ) -> MapState:
+    """An empty map of capacity `cap` on `device` (the card unless the
+    caller asks for another, such as "cpu")."""
     K, N, P = cap.max_keyframes, cap.max_features, cap.max_points
     f32, i32 = torch.float32, torch.int32
 
@@ -134,6 +136,36 @@ def make_empty_map(
         n_kf=full((), 0, i32),
         n_pt=full((), 0, i32),
     )
+
+
+def grow_map(m: MapState, old_cap: MapCapacity, new_cap: MapCapacity) -> MapState:
+    """Re-bucket a map into larger keyframe and point capacities, on the
+    map's device. The reference's map is unbounded (heap-allocated
+    keyframes and points, Map.cc); here capacities are fixed shapes, so
+    growth pads every field into an empty map of the new capacity.
+    Slots keep their positions, so every index stays valid."""
+    if (
+        new_cap.max_features != old_cap.max_features
+        or new_cap.n_levels != old_cap.n_levels
+        or new_cap.scale_factor != old_cap.scale_factor
+    ):
+        raise ValueError("grow_map can only grow keyframe/point capacity")
+    if (
+        new_cap.max_keyframes < old_cap.max_keyframes
+        or new_cap.max_points < old_cap.max_points
+    ):
+        raise ValueError("grow_map cannot shrink capacities")
+    K0, P0 = old_cap.max_keyframes, old_cap.max_points
+    empty = make_empty_map(new_cap, m.kf_Tcw.device)
+    out = {}
+    for f in MapState._fields:
+        v = getattr(m, f)
+        if f.startswith(("kf_", "pt_")):
+            out[f] = getattr(empty, f)
+            out[f][: K0 if f.startswith("kf_") else P0] = v
+        else:  # the scalars n_kf, n_pt
+            out[f] = v
+    return MapState(**out)
 
 
 @functools.lru_cache(maxsize=None)

@@ -131,7 +131,7 @@ def _ba_map(seed, n_kf=9, n_pts=400):
     rng = np.random.default_rng(seed)
     cap = tms.MapCapacity(**BA_CFG)
     K, N, P = cap.max_keyframes, cap.max_features, cap.max_points
-    m = entry.map_to_numpy(tms.make_empty_map(cap))
+    m = entry.map_to_numpy(tms.make_empty_map(cap, "cpu"))
     X = rng.uniform([-3, -2, 4], [3, 2, 12], (n_pts, 3)).astype(np.float32)
     for k in range(n_kf):
         T = se3_exp(torch.tensor([0.15 * k, 0.0, 0.0, 0.0, 0.02 * k, 0.0])).numpy()

@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain versions, on a card.
 
-Every test here needs a CUDA card and skips without one. The file
-imports no JAX and uses no fixture of conftest.py, so it also runs on a
-machine without JAX:
+Every test here but one needs a CUDA card and skips without one; the
+exception checks that asking for the card where none is visible raises
+(in a subprocess with CUDA_VISIBLE_DEVICES empty), and runs anywhere.
+The file imports no JAX and uses no fixture of conftest.py, so it also
+runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -o addopts="" -q
 
@@ -17,8 +19,15 @@ from 7 (one warp) to 60,000, above what its cluster stages on chip
 (8 CTAs x (256 in registers + 6,144 in shared memory) = 51,200), half
 of them stereo rows. `_track_frame_device` on the card
 is held to the port on the CPU on the same frame: poses atol 1e-4,
-counts within 1%, links equal on >= 99% of the features.
+counts within 1%, links equal on >= 99% of the features. Five frames
+of `entry.kitti_sequence` through `System` on the card: 3 kernel-1
+launches on the initializing frame, 3 + 2 on every tracked one.
 """
+
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -231,3 +240,38 @@ def test_track_frame_device_matches_cpu(dev):
         assert (card[i] == cpu[i]).float().mean() >= 0.99
     assert int(card[4]) == int(cpu[4]) == 0
     assert np.abs(card[5].numpy() - scene.T_true)[:3, 3].max() < 1e-2
+
+
+def test_kitti_sequence_through_system_launches_each_kernel(dev):
+    seq = entry.kitti_sequence(np.random.default_rng(7), 5, dev)
+    system = entry.kitti_system(dev)
+    launches = []
+    for frame in seq.frames:
+        patches.PATCH_GATHER.launches = 0
+        pose_opt_cuda.POSE_OPT.launches = 0
+        entry.sequence_step(system, frame)
+        launches.append((patches.PATCH_GATHER.launches, pose_opt_cuda.POSE_OPT.launches))
+    system.shutdown()
+    assert launches == [(3, 0)] + [(3, 2)] * 4
+    tr = system.tracker
+    assert tr.state == "OK" and tr.stats["lost_frames"] == 0 and tr.stats["n_kf"] >= 2
+    for i, (_, T) in enumerate(tr.export_trajectory()):
+        assert np.abs(T - seq.T_true[i])[:3, 3].max() < 2e-2, i
+
+
+def test_system_on_cuda_raises_without_a_card():
+    code = (
+        "from orb_slam2_test_tpu_torch.io.settings import SlamSettings\n"
+        "from orb_slam2_test_tpu_torch.system import System\n"
+        "try:\n"
+        "    System(SlamSettings(), 'monocular', device='cuda')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised:', e)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=Path(__file__).resolve().parent.parent,
+        capture_output=True, text=True, timeout=120,
+        env={**os.environ, "CUDA_VISIBLE_DEVICES": ""},
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("raised:") and "CUDA card" in out.stdout

@@ -218,7 +218,7 @@ class Both:
 
     def __init__(self, cap=CAP):
         self.j = jms.make_empty_map(jms.MapCapacity(**dataclasses.asdict(cap)))
-        self.t = tms.make_empty_map(cap)
+        self.t = tms.make_empty_map(cap, "cpu")
 
     def add_keyframe(self, *args):
         self.j, kj = jms.add_keyframe(self.j, *[jnp.asarray(a) for a in args])

@@ -81,7 +81,7 @@ def _scene_map(seed, n_kf=5, n_pts=300, linked_frac=0.5, cap=None, cam=CAM, dup_
     fusion)."""
     rng = np.random.default_rng(seed)
     cap = cap or tms.MapCapacity(max_keyframes=8, max_features=256, max_points=1024)
-    m = entry.map_to_numpy(tms.make_empty_map(cap))
+    m = entry.map_to_numpy(tms.make_empty_map(cap, "cpu"))
     N = cap.max_features
     X = rng.uniform([-3, -2, 4], [3, 2, 9], (n_pts, 3))
     desc = rng.integers(0, 2**32, (n_pts, 8), dtype=np.uint32)
@@ -215,7 +215,7 @@ def test_fuse_round_matches_sequential_case():
     xyz = np.stack([np.linspace(-1.0, 1.0, n), np.zeros(n), np.full(n, 5.0)], -1).astype(np.float32)
     uv = _project(np.eye(4), xyz)
     desc = rng.integers(0, 2 ** 32, (n, 8), dtype=np.uint32)
-    m = entry.map_to_numpy(tms.make_empty_map(cap))
+    m = entry.map_to_numpy(tms.make_empty_map(cap, "cpu"))
     m["pt_xyz"][:2 * n] = np.concatenate([xyz, xyz])
     m["pt_desc"][:2 * n] = np.concatenate([desc, desc])
     m["pt_normal"][:2 * n] = [0.0, 0.0, 1.0]
@@ -253,7 +253,7 @@ def _stacked(n_kf, n_pts=16, force_ref=None):
     1 cm apart, all observing the same n_pts points at level 0."""
     rng = np.random.default_rng(n_kf)
     cap = tms.MapCapacity(max_keyframes=8, max_features=16, max_points=64)
-    m = entry.map_to_numpy(tms.make_empty_map(cap))
+    m = entry.map_to_numpy(tms.make_empty_map(cap, "cpu"))
     xyz = np.stack([np.linspace(-1.0, 1.0, n_pts), np.zeros(n_pts), np.full(n_pts, 5.0)], -1)
     m["pt_xyz"][:n_pts] = xyz
     m["pt_valid"][:n_pts] = True

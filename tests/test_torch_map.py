@@ -63,7 +63,7 @@ def test_kitti_configuration_is_the_bench_one():
 def test_make_empty_map():
     cap = tms.MapCapacity(max_keyframes=4, max_features=8, max_points=16)
     j = jms.make_empty_map(jms.MapCapacity(**dataclasses.asdict(cap)))
-    t = tms.make_empty_map(cap)
+    t = tms.make_empty_map(cap, "cpu")
     assert t._fields == j._fields
     for name, a, b in zip(j._fields, j, t):
         b = _numpy(name, b)

@@ -100,26 +100,32 @@ def test_tracking_step_full_size_matches_graft_entry():
 
 
 def test_port_never_imports_jax():
+    """Walking the package imports neither JAX nor the JAX package, nor
+    PyYAML or OpenCV at module level (the card's machine has neither)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orb_slam2_test_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "print(','.join(names), 'jax' in sys.modules, "
-        "any(m.startswith('orb_slam2_test_tpu.') for m in sys.modules))\n"
+        "any(m.startswith('orb_slam2_test_tpu.') for m in sys.modules), "
+        "'yaml' in sys.modules, 'cv2' in sys.modules)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    names, has_jax, has_jax_pkg = out.stdout.split()
+    names, has_jax, has_jax_pkg, has_yaml, has_cv2 = out.stdout.split()
     names = set(names.split(","))
-    assert len(names) >= 27  # every subpackage and module was imported
-    for mod in ("ops.stereo", "slam_map.mapstate", "slam_map.covisibility",
-                "engine.tracking", "engine.frame", "entry"):
+    assert len(names) >= 40  # every subpackage and module was imported
+    for mod in ("ops.stereo", "ops.matching", "slam_map.mapstate", "slam_map.covisibility",
+                "engine.tracking", "engine.frame", "engine.matchers", "entry",
+                "solvers.initializer", "io.settings", "io.datasets", "io.trajectory",
+                "io.checkpoint", "evaluation.ate", "system", "cli", "utils.synthetic"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
+    assert has_yaml == "False" and has_cv2 == "False"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
