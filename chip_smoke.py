@@ -98,7 +98,27 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    (320x240, 160 landmarks, 15 frames, its tracker overrides), built in
    memory and driven through `cli.run`: >= 4 keyframes, 0 lost, ATE <=
    0.2 m; after --load-checkpoint --localization-only the keyframe
-   count stays frozen.
+   count stays frozen;
+14. relocalization on the KITTI sequence through `entry.kitti_system`
+   with the default vocabulary (k=10, L=6) and a keyframe at least every
+   2 frames: frames 0-11 (> 5 keyframes), two flat grey stereo frames
+   (LOST, not a reset: 2 lost frames), the images of view 6 again at a
+   later timestamp (OK by BoW candidates, PnP RANSAC and motion-only BA:
+   reloc >= 1, >= 2 pose_opt launches on that frame, within 5 cm of
+   T_true[6]), then views 7-12 (0 further lost frames, each within 2
+   cm). Prints the System's build time with the vocabulary's load and
+   word count, `transform` of the revisited frame's 2000 descriptors
+   (CUDA events, median of 30; words equal to the CPU's), the
+   relocalizing frame's ms (CUDA events and host wall), its candidates,
+   PnP rounds and hypotheses, the share of DLT hypotheses with det
+   P[:, :3] < 0 (the ones the JAX package's extraction turns 180
+   degrees), its launches, and the host ms of each keyframe's
+   `on_new_keyframe` at a flush. `relocalize` on the card's map and that
+   frame and on their CPU copies, with the same recorded samples: both
+   succeed, the same candidates tried, poses within 1e-3, inliers within
+   1%. A checkpoint loaded into a fresh System, its vocabulary from the
+   file as the CLI's --vocabulary PATH gives it, rebuilds the database:
+   every live keyframe, the running database's words.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -429,6 +449,216 @@ def _tum_mono_phase(dev, card: str) -> dict:
     return {"keyframes": first["keyframes"], "lost_frames": first["lost_frames"],
             "ate_rmse_m": first["ate_rmse"], "median_wall_ms": first["median_s"] * 1e3,
             "localization_only_keyframes": again["keyframes"], "launches": launches}
+
+
+class _Draws:
+    """PnP draws recorded on one run of `relocalize` and replayed, in the
+    same order, on another: both devices solve the same samples."""
+
+    def __init__(self, seed: int):
+        import torch
+
+        self.generator = torch.Generator().manual_seed(seed)
+        self.log = []
+
+    def record(self):
+        from orb_slam2_test_tpu_torch.solvers.initializer import sample_indices
+        from orb_slam2_test_tpu_torch.solvers.pnp import SAMPLE
+
+        def draw(valid, n):
+            idx = sample_indices(valid, n, SAMPLE, self.generator)
+            self.log.append(idx.cpu())
+            return idx
+        return draw
+
+    def replayer(self):
+        it = iter(list(self.log))
+
+        def sampler():
+            def draw(valid, n):
+                idx = next(it, None)
+                _check(idx is not None and idx.shape[0] == n,
+                       "the replay asked for more PnP rounds than the recorded run")
+                return idx.to(valid.device)
+            return draw
+        return sampler
+
+
+def _relocalization_phase(dev, card: str) -> dict:
+    """[14]: the KITTI sequence through a System with the default
+    vocabulary, blacked out for two frames, then a revisited view."""
+    import tempfile
+
+    import torch
+
+    from orb_slam2_test_tpu_torch import cli, entry
+    from orb_slam2_test_tpu_torch.bow.vocabulary import DEFAULT_VOCABULARY_PATH, transform
+    from orb_slam2_test_tpu_torch.engine.frame import build_frame_stereo
+    from orb_slam2_test_tpu_torch.engine.relocalization import relocalize
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState, level_tables
+
+    t_phase = time.perf_counter()
+    seq = entry.kitti_sequence(np.random.default_rng(SEED + 5), 13, dev)
+    t0 = time.perf_counter()
+    system = entry.kitti_system(dev, vocabulary="default", max_frames_between_kf=2)
+    build_s = time.perf_counter() - t0
+    tracker = system.tracker
+    closer = tracker.loop_closer
+    voc = system.vocabulary
+    cfg = tracker.cfg
+    _check(closer is not None and closer.fix_scale, "no loop closer, or a free Sim3 scale")
+    print(f"[14] relocalization: a System with the default vocabulary ({voc.n_words} words, "
+          f"k={voc.k}, L={voc.depth}) built in {build_s:.3f} s (npz load, upload and the "
+          f"tracker at K={cfg.max_keyframes} P={cfg.max_points}), max_frames_between_kf="
+          f"{cfg.max_frames_between_kf}")
+
+    # each keyframe's place-recognition step at its flush, host wall
+    onk_ms = []
+    on_new_keyframe = closer.on_new_keyframe
+
+    def timed_on_new_keyframe(m, kf):
+        t = time.perf_counter()
+        out = on_new_keyframe(m, kf)
+        onk_ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    closer.on_new_keyframe = timed_on_new_keyframe
+
+    grey = torch.full_like(seq.frames[0][1], 16)
+    dt = seq.frames[1][0] - seq.frames[0][0]
+    # frames 0-11; two grey frames; view 6 again; views 7-12 after it,
+    # each a frame period later
+    plan = ([(i, seq.frames[i]) for i in range(12)]
+            + [(None, (12 * dt, grey, grey)), (None, (13 * dt, grey, grey))]
+            + [(v, ((v + 8) * dt,) + seq.frames[v][1:]) for v in range(6, 13)])
+    rows = []
+    _zero_launches()
+    for view, frame in plan:
+        before = _launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        pose = entry.sequence_step(system, frame)
+        end.record()
+        end.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        after = _launch_counts()
+        err = (None if pose is None or view is None
+               else float(np.linalg.norm(pose[:3, 3] - seq.T_true[view][:3, 3])))
+        rows.append({"view": view, "state": system.tracking_state, "err": err,
+                     "ms": start.elapsed_time(end), "wall_ms": wall,
+                     "launches": tuple(after[k] - before[k] for k in ("patch_gather", "pose_opt")),
+                     "stats": dict(tracker.stats), "diag": dict(tracker.last_diag)})
+    system.shutdown()
+    launches = _launch_counts()
+    closer.on_new_keyframe = on_new_keyframe
+
+    pre, dark, reloc, after_rows = rows[:12], rows[12:14], rows[14], rows[15:]
+    d = reloc["diag"]
+    neg_share = d.get("reloc_negative_det", 0) / max(d.get("reloc_hypotheses", 0), 1)
+    print(f"    states {''.join(r['state'][0] for r in rows)} (views "
+          f"{[r['view'] for r in rows]}); {pre[-1]['stats']['n_kf']} keyframes before the "
+          f"blackout, stats after it {dark[-1]['stats']}")
+    print(f"[14] the relocalizing frame (view 6 again): {reloc['ms']:.3f} ms on CUDA events, "
+          f"{reloc['wall_ms']:.3f} ms host wall ({card}); {d.get('reloc_candidates')} BoW "
+          f"candidates, {d.get('reloc_tried')} tried, {d.get('reloc_pnp_rounds')} PnP rounds, "
+          f"{d.get('reloc_hypotheses')} hypotheses, {d.get('reloc_negative_det')} of them "
+          f"({neg_share:.2%}) with det P[:, :3] < 0 (the ones the JAX package's extraction "
+          f"turns 180 degrees); launches (patch_gather, pose_opt) {reloc['launches']}; "
+          f"translation error {reloc['err']}")
+    print(f"    translation errors (m): frames 0-11 {[r['err'] for r in pre]}; views 7-12 after "
+          f"the revisit {[r['err'] for r in after_rows]}, launches "
+          f"{[r['launches'] for r in after_rows]}")
+    _check(all(r["state"] == "OK" for r in pre), f"frames 0-11: {[r['state'] for r in pre]}")
+    _check(pre[-1]["stats"]["n_kf"] > 5, f"{pre[-1]['stats']['n_kf']} keyframes before the blackout")
+    _check([r["state"] for r in dark] == ["LOST", "LOST"], f"blackout: {[r['state'] for r in dark]}")
+    _check(dark[-1]["stats"]["lost_frames"] == 2 and tracker.stats["n_kf"] > 5,
+           f"blackout stats {dark[-1]['stats']}: lost or reset")
+    _check(reloc["state"] == "OK" and reloc["stats"]["reloc"] >= 1, f"relocalization: {reloc}")
+    _check(reloc["err"] < 0.05, f"relocalized {reloc['err']} m from T_true[6]")
+    _check(reloc["launches"][1] >= 2, f"relocalizing frame launches {reloc['launches']}")
+    _check(all(r["state"] == "OK" for r in after_rows)
+           and tracker.stats["lost_frames"] == 2, f"after the revisit: {tracker.stats}")
+    _check(max(r["err"] for r in after_rows) < 0.02,
+           f"views 7-12 errors {[r['err'] for r in after_rows]}")
+
+    # transform of the revisited frame's 2000 descriptors on the L6 tree
+    kw = dict(n_features=cfg.n_features, n_levels=cfg.n_levels, scale_factor=cfg.scale_factor)
+    _, left6, right6 = seq.frames[6]
+    frame6 = build_frame_stereo(left6, right6, 0.0, entry.KITTI_CAM, **kw)
+    transform_ms = _cuda_ms(lambda: transform(voc, frame6.desc, frame6.valid))
+    words = transform(voc, frame6.desc, frame6.valid)[0]
+    cpu6 = type(frame6)(*[x.cpu() for x in frame6])
+    _check(torch.equal(words.cpu(), transform(voc, cpu6.desc, cpu6.valid)[0]),
+           "transform: card and CPU words differ")
+    print(f"[14] transform: {transform_ms:.4f} ms for {frame6.desc.shape[0]} descriptors on the "
+          f"L{voc.depth} tree (CUDA events, median of {N_TIMED}; {card}); words equal the CPU's; "
+          f"on_new_keyframe at a flush: {len(onk_ms)} keyframes, median "
+          f"{statistics.median(onk_ms):.3f} ms, max {max(onk_ms):.3f} ms host wall ({card})")
+
+    # relocalize on the card's map and frame and on their CPU copies,
+    # with the same samples
+    cands = closer.db.detect_reloc_candidates(words.cpu().numpy())
+    m_card = tracker.map
+    m_cpu = MapState(*[x.cpu() for x in m_card])
+    draws = _Draws(SEED + 6)
+    runs = {}
+    for where, m, f, sampler in ((dev, m_card, frame6, draws.record), ("cpu", m_cpu, cpu6, None)):
+        sig2 = level_tables(tracker.cap, where)[1]
+        t0 = time.perf_counter()
+        runs[str(where)] = relocalize(f, m, tracker.cam, cands, sampler or draws.replayer(), sig2,
+                                      min_inliers=cfg.min_local_inliers) + (
+            (time.perf_counter() - t0) * 1e3,)
+    (ok_c, T_c, fp_c, info_c, ms_c), (ok_h, T_h, fp_h, info_h, ms_h) = runs[str(dev)], runs["cpu"]
+    _check(ok_c and ok_h, f"relocalize: card {ok_c}, CPU {ok_h}")
+    gap = float(np.abs(T_c - T_h).max())
+    n_c, n_h = int((fp_c >= 0).sum()), int((fp_h >= 0).sum())
+    print(f"    relocalize card vs CPU port (same samples, {len(cands)} candidates): card "
+          f"{info_c} in {ms_c:.1f} ms, CPU {info_h} in {ms_h:.1f} ms host wall; poses within "
+          f"{gap:.3e}, inliers {n_c} vs {n_h}")
+    _check(info_c["tried"] == info_h["tried"], "candidates tried differ")
+    _check(gap <= 1e-3, f"relocalize card vs CPU poses differ by {gap}")
+    _check(abs(n_c - n_h) <= 0.01 * max(n_c, n_h), f"relocalize inliers {n_c} vs {n_h}")
+
+    # a checkpoint loaded into a fresh System with the vocabulary rebuilds
+    # the database: every live keyframe, with the running database's words
+    # (the fresh System takes the vocabulary as the CLI's --vocabulary
+    # PATH gives it: loaded from the file)
+    args = cli.common_parser("").parse_args(
+        ["(in memory)", "(in memory)", "--vocabulary", DEFAULT_VOCABULARY_PATH])
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "reloc.npz")
+        system.save_checkpoint(path)
+        again = entry.kitti_system(dev, vocabulary=args.vocabulary, max_frames_between_kf=2)
+        again.load_checkpoint(path)
+    db2 = again.tracker.loop_closer.db
+    live = set(np.flatnonzero(tracker.map.kf_valid.cpu().numpy()).tolist())
+    _check(set(db2.words) == live, f"rebuilt database ids {sorted(db2.words)} vs live {live}")
+    for kf, w in closer.db.words.items():
+        _check(np.array_equal(db2.words[kf], w), f"rebuilt words of keyframe {kf} differ")
+    missing = sorted(live - set(closer.db.words))
+    _check(again.vocabulary.n_words == voc.n_words, "--vocabulary PATH: another vocabulary")
+    print(f"    checkpoint into a fresh System (vocabulary from --vocabulary "
+          f"{os.path.basename(DEFAULT_VOCABULARY_PATH)}): database rebuilt with {len(db2.words)} keyframes, "
+          f"words equal on the {len(closer.db.words)} the running database holds (not in it: "
+          f"the initialization's {missing})")
+    phase_s = time.perf_counter() - t_phase
+    print(f"[14] took {phase_s:.1f} s")
+    return {
+        "vocabulary_words": voc.n_words, "system_build_s": build_s,
+        "transform_ms_2000": transform_ms,
+        "reloc_frame_ms": reloc["ms"], "reloc_frame_wall_ms": reloc["wall_ms"],
+        "reloc_candidates": d.get("reloc_candidates"), "reloc_tried": d.get("reloc_tried"),
+        "reloc_pnp_rounds": d.get("reloc_pnp_rounds"),
+        "reloc_hypotheses": d.get("reloc_hypotheses"),
+        "negative_det_share": neg_share, "reloc_error_m": reloc["err"],
+        "reloc_frame_launches": list(reloc["launches"]),
+        "after_errors_m": [r["err"] for r in after_rows],
+        "on_new_keyframe_ms": onk_ms,
+        "card_vs_cpu_pose_gap": gap, "card_vs_cpu_inliers": [n_c, n_h],
+        "phase_s": phase_s, "launches": launches,
+    }
 
 
 def _bins(angle: np.ndarray) -> np.ndarray:
@@ -1031,8 +1261,9 @@ def main() -> int:
           f"per keyframe (the JAX run's: {kf_every:.4f}): {amortized_port[0]:.3f} ms/frame "
           f"on CUDA events, {amortized_port[1]:.3f} ms/frame host wall ({card})")
     mono_stats = _tum_mono_phase(dev, card)
+    reloc_stats = _relocalization_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[13] phases 1-13 took {run_s:.1f} s, the kernels' build included")
+    print(f"[14] phases 1-14 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -1060,7 +1291,8 @@ def main() -> int:
                              "kitti_stereo": k_launches, "rgbd": r_launches,
                              "kitti_insert_sequence": ins_launches,
                              "kitti_sequence": seq_stats["launches"],
-                             "tum_mono_sequence": mono_stats["launches"]},
+                             "tum_mono_sequence": mono_stats["launches"],
+                             "kitti_relocalization": reloc_stats["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -1074,6 +1306,7 @@ def main() -> int:
         "kitti_amortized_port_cadence_wall_ms_per_frame": amortized_port[1],
         "kitti_sequence": {k: v for k, v in seq_stats.items() if k != "launches"},
         "tum_mono_sequence": {k: v for k, v in mono_stats.items() if k != "launches"},
+        "kitti_relocalization": {k: v for k, v in reloc_stats.items() if k != "launches"},
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

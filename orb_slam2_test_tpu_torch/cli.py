@@ -13,7 +13,9 @@ args)` is the loop itself, so a `Sequence` built in memory
 The engine runs on the card (--device cuda, the default) and raises
 without one; --device cpu runs it on the CPU. Reading image files needs
 OpenCV and reading a settings file PyYAML, both imported only then.
-Not ported yet: --vocabulary (place recognition), --viewer,
+--vocabulary (default "default", the packaged artifact) turns on place
+recognition: BoW relocalization after tracking loss and loop-candidate
+detection; --no-vocabulary turns it off. Not ported yet: --viewer,
 --live-viewer, --profile and --device-trace.
 """
 
@@ -45,6 +47,11 @@ PREFETCH_DEPTH = 3
 def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
     p.add_argument("settings", help="settings YAML (reference format)")
     p.add_argument("sequence", help="dataset sequence directory")
+    p.add_argument("--vocabulary", default="default",
+                   help="vocabulary path (.npz native or DBoW2 text); default: the "
+                        "packaged artifact, so BoW relocalization is on")
+    p.add_argument("--no-vocabulary", dest="vocabulary", action="store_const", const=None,
+                   help="disable place recognition (no BoW relocalization)")
     p.add_argument("--traj-out", default="CameraTrajectory.txt")
     p.add_argument("--kf-traj-out", default="KeyFrameTrajectory.txt")
     p.add_argument("--kitti-traj", action="store_true",
@@ -195,7 +202,8 @@ def main(argv: list[str] | None = None) -> int:
         if name == "rgbd_tum":
             sp.add_argument("--associations", default=None)
     args = p.parse_args(argv)
-    system = System(args.settings, DATASETS[args.dataset], device=args.device)
+    system = System(args.settings, DATASETS[args.dataset], vocabulary=args.vocabulary,
+                    device=args.device)
     seq = load_sequence(args.dataset, args, system)
     run(system, seq, args)
     return 0

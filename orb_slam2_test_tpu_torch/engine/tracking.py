@@ -32,9 +32,13 @@ Not ported, on purpose:
   (the caller checks `_fused_applicable`), so the branch cannot run.
 - `_grow_map_device`'s `stages` argument truncates the program for
   profiling on the TPU; torch.profiler attributes time per operator.
-- Place recognition (loop closing, BoW relocalization) and the profiler
-  spans belong to later slices: without a vocabulary, relocalization
-  tries the reference keyframe, as the JAX package does.
+- The profiler spans and the loop-correction half of loop closing
+  (Sim3, the essential graph, the chunked global BA) belong to later
+  slices. With a vocabulary (`enable_place_recognition`) relocalization
+  queries the keyframe database and solves PnP RANSAC, and every
+  resolved keyframe enters the database through the loop closer's
+  detection; without one, relocalization tries the reference keyframe,
+  as the JAX package does.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from orb_slam2_test_tpu_torch.bow.vocabulary import Vocabulary, transform
 from orb_slam2_test_tpu_torch.engine.frame import (
     FrameData,
     build_frame_mono,
@@ -59,11 +64,13 @@ from orb_slam2_test_tpu_torch.engine.local_mapping import (
     run_local_ba,
     triangulate_with_neighbors,
 )
+from orb_slam2_test_tpu_torch.engine.loop_closing import MIN_KF_GAP, LoopCloser
 from orb_slam2_test_tpu_torch.engine.matchers import (
     match_by_descriptor_to_map,
     search_by_projection,
     search_for_initialization,
 )
+from orb_slam2_test_tpu_torch.engine.relocalization import relocalize
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera, backproject
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_apply, se3_inverse
 from orb_slam2_test_tpu_torch.ops.extractor import top_k_stable
@@ -92,6 +99,7 @@ from orb_slam2_test_tpu_torch.solvers.initializer import (
     initialize_mono,
     sample_indices,
 )
+from orb_slam2_test_tpu_torch.solvers.pnp import SAMPLE as PNP_SAMPLE
 from orb_slam2_test_tpu_torch.solvers.pose_opt import pose_optimization
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
 from orb_slam2_test_tpu_torch.utils.scatter import put, put_row, select, take
@@ -602,7 +610,17 @@ class Tracker:
         # localization-only: track against a frozen map, never insert
         # keyframes (reference Tracking::InformOnlyTracking)
         self.localization_only = False
+        self.loop_closer: Optional[LoopCloser] = None  # enable_place_recognition
         self.reset()
+
+    def enable_place_recognition(self, voc: Vocabulary, fix_scale: bool = False,
+                                 min_kf_gap: int = MIN_KF_GAP):
+        """Attach a vocabulary: the keyframe database, loop detection and
+        BoW relocalization (reference System wires KeyFrameDatabase and
+        LoopClosing at construction). The vocabulary's arrays go to the
+        tracker's device here."""
+        self.loop_closer = LoopCloser(self.cam, voc, fix_scale=fix_scale,
+                                      min_kf_gap=min_kf_gap, device=self.device)
 
     def reset(self):
         """Clear the map and the tracking state (reference
@@ -638,6 +656,9 @@ class Tracker:
         # mlRelativeFramePoses and SaveTrajectory*)
         self.rel_trajectory = []
         self.stats = {"n_kf": 0, "reloc": 0, "lost_frames": 0, "loops": 0}
+        if self.loop_closer is not None:
+            lc = self.loop_closer
+            self.enable_place_recognition(lc.voc, lc.fix_scale, lc.min_kf_gap)
 
     # ------------------------------------------------------------------
     def _upload(self, img, dtype=None) -> torch.Tensor:
@@ -697,7 +718,8 @@ class Tracker:
 
         if fused is None:
             self._close_counts = None  # per-frame cache (fused fills it)
-        if self.state == TrackingState.LOST:
+        relocalizing = self.state == TrackingState.LOST
+        if relocalizing:
             self.flush_backend()
             ok = self._relocalize(frame)
             if ok:
@@ -714,8 +736,13 @@ class Tracker:
                     ok = self._track_local_map(frame)
         if ok:
             self.state = TrackingState.OK
-            # constant velocity = Tcw_t @ Tcw_{t-1}^-1, on the host
-            self.velocity = self.last_Tcw @ _inv4(self._prev_Tcw)
+            # constant velocity = Tcw_t @ Tcw_{t-1}^-1, on the host. After
+            # a relocalization there is none: the last frame was lost and
+            # has no pose (reference Tracking::Track clears mVelocity when
+            # mLastFrame.mTcw is empty, so the next frame tracks the
+            # reference keyframe). The JAX package keeps the relocalized
+            # frame's own correction, about the identity, as a velocity.
+            self.velocity = None if relocalizing else self.last_Tcw @ _inv4(self._prev_Tcw)
             if not self.localization_only:
                 self._maybe_insert_keyframe(frame, use_depth)
             self.last_feat_pt = self.cur_feat_pt
@@ -1060,11 +1087,37 @@ class Tracker:
         self.map = m._replace(pt_visible=m.pt_visible + vis, pt_found=m.pt_found + vis)
         return True
 
+    def _pnp_sampler(self):
+        """The draw function of one relocalization candidate's adaptive
+        PnP RANSAC: [n, 6] point indices per round, uniform over the
+        valid matches, from the tracker's generator."""
+        return lambda valid, n: sample_indices(valid, n, PNP_SAMPLE, self.generator)
+
     def _relocalize(self, frame: FrameData) -> bool:
-        """Tracking::Relocalization without a vocabulary: try the
-        reference keyframe. (BoW candidates and PnP RANSAC come with the
-        place-recognition slice.)"""
-        return self._track_reference_kf(frame)
+        """Tracking::Relocalization: BoW candidates from the keyframe
+        database, then PnP RANSAC and motion-only BA per candidate.
+        Without a vocabulary: try the reference keyframe."""
+        if self.loop_closer is None:
+            return self._track_reference_kf(frame)
+        words, _ = transform(self.loop_closer.voc, frame.desc, frame.valid)
+        cands = self.loop_closer.db.detect_reloc_candidates(words.cpu().numpy())
+        self.last_diag = {"reloc_candidates": len(cands)}
+        if not cands:
+            return False
+        _, sig2 = level_tables(self.cap, self.device)
+        ok, Tcw, feat_pt, info = relocalize(
+            frame, self.map, self.cam, cands, self._pnp_sampler, sig2,
+            min_inliers=self.cfg.min_local_inliers,
+        )
+        self.last_diag["reloc_ok"] = bool(ok)
+        self.last_diag.update((f"reloc_{k}", v) for k, v in info.items())
+        if not ok:
+            return False
+        self._prev_Tcw = Tcw
+        self.last_Tcw = Tcw
+        self.cur_feat_pt = feat_pt
+        self.stats["reloc"] += 1
+        return True
 
     # ------------------------------------------------------------------
     # Keyframe insertion + local mapping
@@ -1177,11 +1230,14 @@ class Tracker:
             return
         m, culled = cull_keyframes(self.map, self._tensor(int(self.ref_kf), torch.int64),
                                    n_levels=self.cfg.n_levels)
-        if int(culled) < 0:
+        culled = int(culled)
+        if culled < 0:
             return
         self.map = m
         self._obs_bm = None
         self.n_live_kf -= 1
+        if self.loop_closer is not None:
+            self.loop_closer.db.erase(culled)
 
     def _grow_capacity(self, max_keyframes: int | None = None,
                        max_points: int | None = None) -> None:
@@ -1198,16 +1254,19 @@ class Tracker:
         self._obs_bm = None
 
     def flush_backend(self) -> None:
-        """Resolve every deferred insert, oldest first (reference: the
-        LocalMapping thread consuming its keyframe queue). Called before
-        relocalization and before any export or checkpoint; safe at any
+        """Resolve every deferred insert, oldest first, each keyframe
+        then entering the place-recognition database (reference: the
+        LocalMapping and LoopClosing threads consuming their keyframe
+        queues). Called before relocalization (the keyframe must be in
+        the database) and before any export or checkpoint; safe at any
         time."""
         while self._pending_kf:
             self._flush_one()
 
     def _flush_one(self) -> None:
         """Resolve the oldest deferred insert: one readback of its kf,
-        culled keyframe and point count."""
+        culled keyframe and point count; then the loop closer's
+        detection on the keyframe."""
         if not self._pending_kf:
             return
         kf, culled, n_pt_after, _ = self._pending_kf.pop(0)
@@ -1221,13 +1280,25 @@ class Tracker:
                 "despite the host capacity gate")
         if culled >= 0:
             self.n_live_kf -= 1
-            if self.cfg.enable_kf_culling and int(self.ref_kf) == culled:
-                self.ref_kf = kf
+            if self.cfg.enable_kf_culling:
+                if int(self.ref_kf) == culled:
+                    self.ref_kf = kf
+                if self.loop_closer is not None:
+                    self.loop_closer.db.erase(culled)
         if torch.is_tensor(self.ref_kf):
             self.ref_kf = int(self.ref_kf)
+        if self.loop_closer is not None:
+            # the chunked global BA's advance and the loop branch (carry
+            # the tracked pose onto the corrected keyframe, drop the
+            # motion model) come with the loop-correction slice; the
+            # closer detects and records candidates meanwhile
+            self.map, _ = self.loop_closer.on_new_keyframe(self.map, kf)
+            if self.loop_closer.last_candidate is not None:
+                self.last_diag["loop_candidate"] = self.loop_closer.last_candidate
 
     def drain_backend(self) -> None:
         """Resolve the deferred inserts (before an export or a
-        checkpoint). Without loop closing there is no global BA to run
-        to completion, so this is `flush_backend`."""
+        checkpoint). The chunked global BA that the JAX package runs to
+        completion here comes with loop correction, so this is
+        `flush_backend`."""
         self.flush_backend()

@@ -26,7 +26,8 @@ that the frame really observes; `kitti_insert_scene` three views of four
 planes, 1.07 m apart, for track -> insert -> track -> insert;
 `bench_map` is the bench's random map filling. `map_from_numpy` and
 `map_to_numpy` carry a map between the JAX package's numpy layouts and
-the port's tensors; `state_from_numpy`, `consistent_scene`,
+the port's tensors, `frame_from_numpy` a frame and
+`vocabulary_from_numpy` a vocabulary; `state_from_numpy`, `consistent_scene`,
 `example_scene` and `pose_problem` serve the mono step and kernel 2.
 Every function that puts tensors on a device does so on the card
 (`device="cuda"`) unless the caller asks for another, such as "cpu".
@@ -39,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from orb_slam2_test_tpu_torch.bow.vocabulary import Vocabulary
 from orb_slam2_test_tpu_torch.engine.frame import (
     FrameData,
     build_frame_mono,
@@ -362,6 +364,18 @@ def frame_from_numpy(f, device: torch.device | str = "cuda") -> FrameData:
     """A frame given as numpy arrays (descriptors uint32 or int32) as
     the port's FrameData on `device`."""
     return FrameData(*[_to_device(getattr(f, k), device) for k in FrameData._fields])
+
+
+def vocabulary_from_numpy(voc, device: torch.device | str = "cuda") -> Vocabulary:
+    """A vocabulary given as the JAX package's `Vocabulary` (numpy
+    arrays, node_desc uint32) as the port's, its arrays on `device`."""
+    out = Vocabulary(
+        **{f: np.array(getattr(voc, f)) for f in
+           ("node_desc", "node_children", "node_is_leaf", "leaf_word", "word_weight")},
+        k=int(voc.k), depth=int(voc.depth),
+    )
+    out.on(device)
+    return out
 
 
 class TrackScene(NamedTuple):
@@ -796,11 +810,13 @@ def kitti_sequence(
     return band_sequence(rng, KITTI_CAM, n_frames, device)
 
 
-def kitti_system(device: torch.device | str = "cuda", **overrides) -> System:
+def kitti_system(device: torch.device | str = "cuda", vocabulary=None,
+                 **overrides) -> System:
     """A stereo System at the bench's KITTI configuration (KITTI_CAM and
     KITTI_CFG's 2000 features, K = 384, P = 131,072 and caps of 8192),
     from an empty map; as for any settings, at most fps = 10 frames pass
-    between keyframes. `overrides` are TrackerConfig fields."""
+    between keyframes. `vocabulary` is System's (None, "default", a path
+    or a Vocabulary); `overrides` are TrackerConfig fields."""
     c = KITTI_CFG
     settings = SlamSettings(
         fx=KITTI_CAM.fx, fy=KITTI_CAM.fy, cx=KITTI_CAM.cx, cy=KITTI_CAM.cy,
@@ -808,7 +824,7 @@ def kitti_system(device: torch.device | str = "cuda", **overrides) -> System:
         n_features=c.n_features, max_keyframes=c.max_keyframes, max_points=c.max_points,
         local_pt_cap=c.local_pt_cap, ba_pt_cap=c.ba_pt_cap,
     )
-    return System(settings, "stereo", device=device, **overrides)
+    return System(settings, "stereo", vocabulary=vocabulary, device=device, **overrides)
 
 
 def sequence_step(system: System, frame: tuple):

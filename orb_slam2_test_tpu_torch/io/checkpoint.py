@@ -142,3 +142,7 @@ def load_tracker(path: str, tracker) -> None:
     tracker._T_cr_last = None
     tracker._ref_is_new_kf = False
     tracker._ref_Tcw_host = None
+    # the keyframe database is rebuilt from the restored map when place
+    # recognition is on (BoW word lists are derivable state)
+    if tracker.loop_closer is not None:
+        tracker.loop_closer.rebuild_from_map(m)

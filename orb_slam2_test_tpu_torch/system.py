@@ -4,7 +4,7 @@ src/System.cc).
 Port of orb_slam2_test_tpu/system.py:
 
   reference System::                  here:
-    System(voc, settings, sensor)  ->  System(settings, sensor, device=...)
+    System(voc, settings, sensor)  ->  System(settings, sensor, vocabulary, device)
     TrackMonocular(im, t)          ->  track_monocular(img, t)
     TrackStereo(imL, imR, t)       ->  track_stereo(imgL, imgR, t)
     TrackRGBD(im, depth, t)        ->  track_rgbd(img, depth, t)
@@ -22,8 +22,11 @@ The engine runs on `device`, the card unless the caller asks for
 another; asking for the card without one raises. The reference runs
 Tracking, LocalMapping and LoopClosing as three threads; here a keyframe
 insert is queued on the card behind tracking and resolved at the next
-keyframe decision. Place recognition (a vocabulary, loop closing) and
-the viewers are not ported yet.
+keyframe decision, and a resolved keyframe then enters the
+place-recognition database. With a vocabulary the Tracker relocalizes
+by BoW candidates and PnP RANSAC and detects loop candidates; closing a
+loop (Sim3, the essential graph, global BA) and the viewers are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -34,6 +37,11 @@ from typing import Union
 import numpy as np
 import torch
 
+from orb_slam2_test_tpu_torch.bow.vocabulary import (
+    Vocabulary,
+    default_vocabulary,
+    load_vocabulary,
+)
 from orb_slam2_test_tpu_torch.engine.tracking import Tracker, TrackingState
 from orb_slam2_test_tpu_torch.io import trajectory as traj_io
 from orb_slam2_test_tpu_torch.io.checkpoint import load_tracker, save_tracker
@@ -58,16 +66,13 @@ class System:
         **config_overrides,
     ):
         """settings: a reference-format YAML path or a SlamSettings.
-        vocabulary: must be None (place recognition is the port's next
-        slice). config_overrides: TrackerConfig fields."""
+        vocabulary: None (no place recognition), "default" (the packaged
+        artifact; a warning and no place recognition if it is absent), a
+        path (.npz or DBoW2 text) or a Vocabulary. config_overrides:
+        TrackerConfig fields."""
         if sensor not in _SENSORS:
             raise ValueError(f"sensor must be one of {_SENSORS}")
-        if vocabulary is not None:
-            raise NotImplementedError(
-                "a vocabulary (loop closing, BoW relocalization) needs the place-"
-                "recognition slice of the port, not yet ported; pass vocabulary=None")
         self.sensor = sensor
-        self.vocabulary = None
         self.settings = load_settings(settings) if isinstance(settings, str) else settings
         # reference NeedNewKeyFrame: thRefRatio = 0.75 for stereo/RGB-D,
         # 0.9 for monocular
@@ -76,6 +81,27 @@ class System:
         cfg = self.settings.tracker_config(**config_overrides)
         self.tracker = Tracker(self.settings.camera, cfg, device)
         self._frame_times = []  # per-frame host wall time, seconds
+
+        self.vocabulary = None
+        if isinstance(vocabulary, Vocabulary):
+            self.vocabulary = vocabulary
+        elif vocabulary is not None:
+            t0 = time.time()
+            try:
+                self.vocabulary = (default_vocabulary() if vocabulary == "default"
+                                   else load_vocabulary(vocabulary))
+            except FileNotFoundError as e:
+                if vocabulary != "default":
+                    raise
+                print(f"WARNING: {e}; running without place recognition")
+            else:
+                print(f"Vocabulary loaded in {time.time() - t0:.2f}s "
+                      f"({self.vocabulary.n_words} words)")
+        if self.vocabulary is not None:
+            # stereo / RGB-D fix the Sim3 scale (reference: bFixScale =
+            # sensor != MONOCULAR in the System ctor)
+            self.tracker.enable_place_recognition(
+                self.vocabulary, fix_scale=(sensor != MONOCULAR))
 
     # ------------------------------------------------------------------
     def track_monocular(self, img, timestamp: float):

@@ -22,6 +22,10 @@ is held to the port on the CPU on the same frame: poses atol 1e-4,
 counts within 1%, links equal on >= 99% of the features. Five frames
 of `entry.kitti_sequence` through `System` on the card: 3 kernel-1
 launches on the initializing frame, 3 + 2 on every tracked one.
+Place recognition: `transform` on the packaged L6 vocabulary equals the
+CPU's words and nodes, and adaptive PnP RANSAC at 25% inliers on the
+card equals the CPU's on the same recorded samples (pose atol 1e-3,
+inliers >= 99%), though the SVD signs differ.
 """
 
 import os
@@ -257,6 +261,54 @@ def test_kitti_sequence_through_system_launches_each_kernel(dev):
     assert tr.state == "OK" and tr.stats["lost_frames"] == 0 and tr.stats["n_kf"] >= 2
     for i, (_, T) in enumerate(tr.export_trajectory()):
         assert np.abs(T - seq.T_true[i])[:3, 3].max() < 2e-2, i
+
+
+def test_transform_matches_cpu_on_the_default_vocabulary(dev):
+    from orb_slam2_test_tpu_torch.bow.vocabulary import default_vocabulary, transform
+
+    voc = default_vocabulary()
+    rng = np.random.default_rng(3)
+    desc = torch.from_numpy(rng.integers(0, 2**32, (2000, 8), dtype=np.uint32).view(np.int32))
+    valid = torch.from_numpy(rng.uniform(size=2000) < 0.95)
+    w_card, n_card = transform(voc, desc.to(dev), valid.to(dev))
+    w_cpu, n_cpu = transform(voc, desc, valid)
+    assert torch.equal(w_card.cpu(), w_cpu) and torch.equal(n_card.cpu(), n_cpu)
+    assert (w_cpu[valid] >= 0).all() and (w_cpu[~valid] == -1).all()
+
+
+def test_pnp_on_the_card_matches_cpu_with_the_same_samples(dev):
+    """At 25% inliers: the card's SVD signs differ from LAPACK's, the
+    sign-free extraction makes the same samples give the same pose."""
+    from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_test_tpu_torch.solvers import pnp
+    from orb_slam2_test_tpu_torch.solvers.initializer import sample_indices
+
+    cam = PinholeCamera(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+    rng = np.random.default_rng(0)
+    t_true = np.array([0.3, -0.1, 0.5])
+    X_in = rng.uniform([-2, -2, 4], [2, 2, 10], (40, 3))
+    pc = X_in + t_true
+    uv_in = 500.0 * pc[:, :2] / pc[:, 2:] + [320.0, 240.0] + rng.normal(0, 0.3, (40, 2))
+    X = np.concatenate([X_in, rng.uniform([-2, -2, 4], [2, 2, 10], (120, 3))])
+    uv = np.concatenate([uv_in, rng.uniform([0, 0], [640, 480], (120, 2))])
+    X, uv = (torch.from_numpy(a.astype(np.float32)) for a in (X, uv))
+    valid = torch.ones(160, dtype=torch.bool)
+    gen = torch.Generator().manual_seed(0)
+    log = []
+
+    def record(v, n):
+        log.append(sample_indices(v, n, pnp.SAMPLE, gen).cpu())
+        return log[-1].to(v.device)
+
+    card, s_card = pnp.pnp_ransac_adaptive(cam, X.to(dev), uv.to(dev), valid.to(dev), record,
+                                           batch=512, max_hypotheses=32768)
+    replay = iter(log)
+    cpu, s_cpu = pnp.pnp_ransac_adaptive(cam, X, uv, valid, lambda v, n: next(replay),
+                                         batch=512, max_hypotheses=32768)
+    assert bool(card.success) and bool(cpu.success) and s_card.rounds == s_cpu.rounds
+    assert np.abs(card.Tcw.cpu().numpy() - cpu.Tcw.numpy()).max() < 1e-3
+    assert (card.inliers.cpu() == cpu.inliers).float().mean() >= 0.99
+    assert np.linalg.norm(card.Tcw.cpu().numpy()[:3, 3] - t_true) < 0.05
 
 
 def test_system_on_cuda_raises_without_a_card():

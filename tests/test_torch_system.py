@@ -300,8 +300,35 @@ def test_system_checkpoint_round_trip_and_vocabulary(recipe, tmp_path):
                                   system.tracker.map.kf_Tcw.numpy())
     assert again.tracker.n_live_kf == system.tracker.n_live_kf >= 2
     assert system.timing_stats()["n"] == 8
-    with pytest.raises(NotImplementedError, match="place-recognition"):
-        System(s, "monocular", vocabulary="default", device="cpu")
+    # the packaged vocabulary attaches place recognition; mono leaves the
+    # Sim3 scale free (reference bFixScale = sensor != MONOCULAR)
+    voc_system = System(s, "monocular", vocabulary="default", device="cpu")
+    closer = voc_system.tracker.loop_closer
+    assert closer is not None and closer.fix_scale is False
+    assert voc_system.vocabulary.n_words >= 500_000 and closer.voc is voc_system.vocabulary
+    # a checkpoint loaded into it rebuilds the keyframe database
+    voc_system.load_checkpoint(str(tmp_path / "m.npz"))
+    assert set(closer.db.words) == set(np.flatnonzero(again.tracker.map.kf_valid.numpy()))
     with pytest.raises(RuntimeError):
         system.track_stereo(None, None, 0.0)
 
+
+
+def test_cli_vocabulary_options(recipe, tmp_path):
+    """--vocabulary defaults to the packaged artifact and takes a path (a
+    small npz here); --no-vocabulary turns place recognition off. The
+    System attaches what the option names."""
+    from orb_slam2_test_tpu_torch.bow import vocabulary as tvoc
+
+    d, settings = recipe
+    p = cli.common_parser("")
+    assert p.parse_args([settings, d]).vocabulary == "default"
+    assert p.parse_args([settings, d, "--no-vocabulary"]).vocabulary is None
+    train = np.random.default_rng(0).integers(0, 2**32, (500, 8), dtype=np.uint32)
+    path = str(tmp_path / "small.npz")
+    tvoc.save_vocabulary_npz(tvoc.build_vocabulary(train, k=4, depth=2), path)
+    args = p.parse_args([settings, d, "--vocabulary", path])
+    system = System(settings, "monocular", vocabulary=args.vocabulary, device="cpu")
+    assert system.tracker.loop_closer.voc is system.vocabulary
+    assert system.vocabulary.n_words <= 16 and not system.tracker.loop_closer.fix_scale
+    assert System(settings, "monocular", vocabulary=None, device="cpu").tracker.loop_closer is None
