@@ -118,7 +118,26 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    succeed, the same candidates tried, poses within 1e-3, inliers within
    1%. A checkpoint loaded into a fresh System, its vocabulary from the
    file as the CLI's --vocabulary PATH gives it, rebuilds the database:
-   every live keyframe, the running database's words.
+   every live keyframe, the running database's words;
+15. loop closing: (a) the out-and-back ring of
+   tests/test_loop_closing_e2e.py (320x240 RGB-D, 120 frames, its
+   tracker settings, a vocabulary trained from the sequence) through the
+   port's Tracker with fix_scale and min_kf_gap 5: >= 1 loop, >= 105
+   tracked frames, no global BA left pending; (b) a KITTI-geometry ring
+   at full width (1241x376, 2000 features, K = 384, P = 131072, the
+   default vocabulary; RING_FRAMES frames of radius RING_RADIUS, the
+   shortest on which a CPU rehearsal of the port closed a loop),
+   rendered by a process pool and driven through `System.track_stereo`:
+   >= 1 loop, 0 lost, 3 patch_gather launches on every frame and >= 2
+   pose_opt launches on every tracked one, the ATE against the truth
+   before the first loop and at the end; each prints its loop flush (on
+   CUDA events: detection, ComputeSim3, `_correct_loop_device`) and
+   every global BA chunk and apply; (c) the first loop's captured map
+   and Sim3 through `_correct_loop_device` and one global BA chunk on
+   the card and on the CPU port: live poses within CORRECT_POSE_ATOL,
+   links >= 99% equal, points within CORRECT_PT_ATOL on >= 99%, the
+   chunk's poses within GBA_POSE_ATOL; (d) both again under
+   torch.cuda.set_sync_debug_mode("error") (no host sync).
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -659,6 +678,306 @@ def _relocalization_phase(dev, card: str) -> dict:
         "card_vs_cpu_pose_gap": gap, "card_vs_cpu_inliers": [n_c, n_h],
         "phase_s": phase_s, "launches": launches,
     }
+
+
+# [15b]: the shortest KITTI-geometry ring on which the port closes a
+# loop in a CPU rehearsal (examples' scene, 0.8 m and 2.3 degrees per
+# frame; one lap is 157 frames, the rest revisits the start)
+RING_FRAMES = 200
+RING_RADIUS = 20.0
+RING_REVOLUTIONS = 1.27
+# [15c]: the card against the CPU port, the same inputs
+CORRECT_POSE_ATOL = 1e-3  # _correct_loop_device: 40 LM steps, LU on each side
+CORRECT_LINKS_MIN = 0.99
+CORRECT_PT_ATOL = 1e-2  # points on >= 99%: they move with their keyframe
+# one global BA chunk: 4 LM steps of 40 float32 CG iterations over the
+# whole map's 768,000 observation slots, whose index adds run in another
+# order on each device (1.69e-3 measured on the 200-frame ring)
+GBA_POSE_ATOL = 5e-3
+
+
+class _LoopTimes:
+    """CUDA-event ms of each call of the loop closer's stages: detection
+    (on_new_keyframe minus the Sim3 and correction), ComputeSim3
+    (_compute_and_correct minus the correction), the correction program,
+    each global BA chunk and the apply. Every wrapper waits for its
+    end event, so the stages are timed one by one."""
+
+    def __init__(self, closer, lc_module):
+        import torch
+
+        self.torch = torch
+        self.ms = {k: [] for k in ("on_new_keyframe", "compute_and_correct",
+                                   "correct_loop_device", "gba_chunk", "apply_gba")}
+        self.loop_flush = []  # (kf, on_new_keyframe, compute_and_correct, correct) per loop
+        self.captured = None  # the first correction's inputs, for [15c] / [15d]
+        self.on_capture = None
+        self._restore = []
+        lc = lc_module
+        self._wrap(lc, "_correct_loop_device", "correct_loop_device", capture=True)
+        self._wrap(lc, "_apply_gba_device", "apply_gba")
+        self._wrap(closer, "_compute_and_correct", "compute_and_correct")
+        self._wrap(closer, "on_new_keyframe", "on_new_keyframe")
+        chunk = closer.advance_global_ba
+
+        def advance(m):
+            if not closer.gba_running():
+                return chunk(m)
+            return self._timed(chunk, "gba_chunk", m)
+
+        closer.advance_global_ba = advance
+        self._restore.append((closer, "advance_global_ba", None))
+        self.closer = closer
+
+    def _timed(self, fn, name, *a, **k):
+        torch = self.torch
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a, **k)
+        end.record()
+        end.synchronize()
+        self.ms[name].append(start.elapsed_time(end))
+        return out
+
+    def _wrap(self, obj, attr, name, capture=False):
+        fn = getattr(obj, attr)
+
+        def timed(*a, **k):
+            if capture and self.captured is None:
+                m, kf_id, cand, S12, fix = a[1:6]
+                self.captured = ([x.clone() for x in m], kf_id.clone(), cand.clone(),
+                                 S12.clone(), fix)
+                if self.on_capture is not None:
+                    self.on_capture(m)
+            out = self._timed(fn, name, *a, **k)
+            if name == "on_new_keyframe" and out[1]:
+                self.loop_flush.append((a[1], self.ms["on_new_keyframe"][-1],
+                                        self.ms["compute_and_correct"][-1],
+                                        self.ms["correct_loop_device"][-1]))
+            return out
+
+        setattr(obj, attr, timed)
+        self._restore.append((obj, attr, fn))
+
+    def restore(self):
+        for obj, attr, fn in self._restore:
+            if fn is None:
+                delattr(obj, attr)
+            else:
+                setattr(obj, attr, fn)
+
+    def report(self, tag: str, card: str) -> dict:
+        for kf, onk, cc, corr in self.loop_flush:
+            print(f"{tag} loop at keyframe {kf}: its flush {onk:.1f} ms on CUDA events "
+                  f"(detection {onk - cc:.1f}, ComputeSim3 {cc - corr:.1f} with the global "
+                  f"BA's start, _correct_loop_device {corr:.1f}; {card})")
+        print(f"{tag} global BA chunks: " + ", ".join(f"{x:.1f}" for x in self.ms["gba_chunk"])
+              + f" ms; the apply {', '.join(f'{x:.1f}' for x in self.ms['apply_gba'])} ms "
+              f"(inside the last chunk; CUDA events)")
+        return {"loop_flush_ms": [{"kf": kf, "flush": onk, "detection": onk - cc,
+                                   "compute_sim3": cc - corr, "correct_loop_device": corr}
+                                  for kf, onk, cc, corr in self.loop_flush],
+                "gba_chunk_ms": self.ms["gba_chunk"], "apply_gba_ms": self.ms["apply_gba"],
+                "on_new_keyframe_median_ms": (statistics.median(self.ms["on_new_keyframe"])
+                                              if self.ms["on_new_keyframe"] else None)}
+
+
+def _out_and_back_phase(dev, card: str) -> dict:
+    """[15a]: the out-and-back ring of tests/test_loop_closing_e2e.py
+    through the port's Tracker on the card."""
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+
+    t0 = time.perf_counter()
+    scene = entry.out_and_back_scene(np.random.default_rng(0), device=dev)
+    tracker = entry.out_and_back_tracker(scene, device=dev)
+    render_s = time.perf_counter() - t0
+    times = _LoopTimes(tracker.loop_closer, lc)
+    n = len(scene.images)
+    _zero_launches()
+    t0 = time.perf_counter()
+    try:
+        for i in range(n):
+            tracker.process_image_rgbd(scene.images[i], scene.depths[i], i / 30.0)
+        tracker.drain_backend()
+        torch.cuda.synchronize()
+    finally:
+        times.restore()
+    run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    stats = dict(tracker.stats)
+    print(f"[15a] out-and-back ring (320x240 RGB-D, {n} frames, {scene.vocabulary.n_words} "
+          f"words from the sequence, fix_scale, min_kf_gap 5): {len(tracker.trajectory)} "
+          f"tracked, stats {stats}, loop keyframe {tracker.loop_closer.last_loop_kf}; "
+          f"{run_s:.1f} s ({render_s:.1f} s to render and train the vocabulary); "
+          f"launches {launches}")
+    out = times.report("[15a]", card)
+    _check(stats["loops"] >= 1, f"[15a] no loop closed: {stats}")
+    _check(len(tracker.trajectory) >= n - 15, f"[15a] {len(tracker.trajectory)} tracked of {n}")
+    _check(not tracker.loop_closer.gba_running(), "[15a] a global BA is still pending")
+    out.update(frames=n, tracked=len(tracker.trajectory), loops=stats["loops"],
+               keyframes=stats["n_kf"], lost_frames=stats["lost_frames"],
+               loop_kf=tracker.loop_closer.last_loop_kf, run_s=run_s, launches=launches)
+    return out
+
+
+def _trajectory_on(tracker, m) -> list:
+    """The tracked trajectory against map m's keyframe poses, as
+    `export_trajectory` computes it, without draining the backend."""
+    kf_Tcw, kf_valid, kf_parent, kf_Tcp = (
+        x.cpu().numpy() for x in (m.kf_Tcw, m.kf_valid, m.kf_parent, m.kf_Tcp))
+    return [(ts, T_cr @ tracker._resolve_ref_pose(int(ref), kf_Tcw, kf_valid, kf_parent, kf_Tcp))
+            for ts, ref, T_cr in tracker.rel_trajectory]
+
+
+def _kitti_loop_phase(dev, card: str) -> dict:
+    """[15b]-[15d]: a KITTI-geometry ring at full width through System,
+    its loop correction and one global BA chunk against the CPU port,
+    and both with no host sync."""
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState
+    from orb_slam2_test_tpu_torch.solvers import ba_core
+
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    seq = entry.kitti_loop_sequence(RING_FRAMES, RING_RADIUS, RING_REVOLUTIONS, workers=workers)
+    render_s = time.perf_counter() - t0
+    system = entry.kitti_loop_system(dev)
+    tracker = system.tracker
+    cfg = tracker.cfg
+    closer = tracker.loop_closer
+    _check(closer is not None and closer.fix_scale, "[15b] no loop closer, or a free scale")
+    print(f"[15b] KITTI ring: {RING_FRAMES} stereo frames {entry.KITTI_CAM.width}x"
+          f"{entry.KITTI_CAM.height} (radius {RING_RADIUS} m, {RING_REVOLUTIONS} laps) rendered "
+          f"in {render_s:.1f} s by {workers} processes; {cfg.n_features} features, "
+          f"K={cfg.max_keyframes} P={cfg.max_points}, the default vocabulary")
+    times = _LoopTimes(closer, lc)
+    before = {}
+
+    def at_capture(m):
+        traj = _trajectory_on(tracker, m)
+        before.update(frames=len(traj), ate=_ate(traj, seq.T_true[:len(traj)]))
+
+    times.on_capture = at_capture
+    frame_ms, per_frame, loop_frames = [], [], []
+    _zero_launches()
+    t_seq = time.perf_counter()
+    try:
+        for i, (t, left, right) in enumerate(seq.frames()):
+            c0, loops0 = _launch_counts(), tracker.stats["loops"]
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            system.track_stereo(left, right, t)
+            end.record()
+            end.synchronize()
+            frame_ms.append(start.elapsed_time(end))
+            c1 = _launch_counts()
+            per_frame.append((c1["patch_gather"] - c0["patch_gather"],
+                              c1["pose_opt"] - c0["pose_opt"]))
+            if tracker.stats["loops"] > loops0:
+                loop_frames.append((i, frame_ms[-1]))
+        system.shutdown()
+    finally:
+        times.restore()
+    seq_s = time.perf_counter() - t_seq
+    launches = _launch_counts()
+    stats = dict(tracker.stats)
+    ate_end = _ate(tracker.export_trajectory(), seq.T_true)
+    counts = {}
+    for pf in per_frame:
+        counts[str(pf)] = counts.get(str(pf), 0) + 1
+    print(f"[15b] {stats['loops']} loops, {stats['n_kf']} keyframes ({tracker.n_live_kf} live), "
+          f"{stats['lost_frames']} lost, {stats['reloc']} relocalizations, capacity growths "
+          f"{tracker.growth_events}; the sequence took {seq_s:.1f} s, per frame median "
+          f"{statistics.median(frame_ms):.1f} ms, mean {statistics.mean(frame_ms):.1f} ms on "
+          f"CUDA events ({card})")
+    if before:
+        print(f"[15b] ATE before the first loop ({before['frames']} frames): "
+              f"{before['ate']['rmse']:.4f} m; at the end ({len(seq.T_true)} frames, after the "
+              f"global BA): {ate_end['rmse']:.4f} m")
+    print(f"[15b] loop frames (index, ms): {[(i, round(ms, 1)) for i, ms in loop_frames]}")
+    print(f"[15b] launches (patch_gather, pose_opt) per frame: {counts}; total {launches}")
+    out = times.report("[15b]", card)
+    _check(stats["loops"] >= 1, f"[15b] no loop closed on the ring: {stats}")
+    _check(stats["lost_frames"] == 0, f"[15b] lost frames: {stats}")
+    _check(not closer.gba_running(), "[15b] a global BA is still pending after shutdown")
+    _check(np.isfinite(ate_end["rmse"]), f"[15b] ATE {ate_end}")
+    _check(all(pg == 3 for pg, _ in per_frame) and all(po >= 2 for _, po in per_frame[1:]),
+           f"[15b] launches per frame {counts}")
+
+    # -- 15c. the correction and a global BA chunk against the CPU port
+    m0, kf_id, cand, S12, fix = times.captured
+    m0 = MapState(*m0)
+    cam = tracker.cam
+    t0 = time.perf_counter()
+    card_m = lc._correct_loop_device(cam, m0, kf_id, cand, S12, fix)
+    cpu_m = lc._correct_loop_device(cam, MapState(*[x.cpu() for x in m0]), kf_id.cpu(),
+                                    cand.cpu(), S12.cpu(), fix)
+    A, B = entry.map_to_numpy(card_m), entry.map_to_numpy(cpu_m)
+    live = A["kf_valid"]
+    pose_gap = float(np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max())
+    links = float((A["kf_pt_idx"][live] == B["kf_pt_idx"][live]).mean())
+    pv = A["pt_valid"] & B["pt_valid"]
+    pt_gap = np.abs(A["pt_xyz"][pv] - B["pt_xyz"][pv]).max(-1)
+    pt_share = float((pt_gap <= CORRECT_PT_ATOL).mean())
+    prob = lc.LoopCloser._build_gba_prob(card_m)
+    cost0 = ba_core._robust_cost(prob, cam)
+    lam = torch.full((), 1e-4, device=dev)
+    active = torch.ones_like(prob.obs_valid)
+    g_card = ba_core.bundle_adjust_partial(prob, cam, lam, cost0, active, iters=4, robust=True)
+    cprob = ba_core.BAProblem(*[x.cpu() for x in prob])
+    g_cpu = ba_core.bundle_adjust_partial(cprob, cam, lam.cpu(), cost0.cpu(), active.cpu(),
+                                          iters=4, robust=True)
+    fixed = prob.cam_fixed.cpu()
+    gba_gap = float((g_card[0].cam_Tcw.cpu() - g_cpu[0].cam_Tcw).abs()[~fixed].max())
+    gba_pt = (g_card[0].pt_xyz.cpu() - g_cpu[0].pt_xyz).abs().max(-1).values[
+        prob.pt_valid.cpu()]
+    gba_pt_share = float((gba_pt <= CORRECT_PT_ATOL).float().mean())
+    print(f"[15c] _correct_loop_device (keyframe {int(kf_id)} to {int(cand)}) card vs CPU from "
+          f"the same inputs: live poses {pose_gap:.2e} (bound {CORRECT_POSE_ATOL:g}), links "
+          f"{links:.4%} equal (bound {CORRECT_LINKS_MIN:.0%}), points within "
+          f"{CORRECT_PT_ATOL:g} on {pt_share:.4%} (bound 99%, largest {pt_gap.max():.2e}); one "
+          f"global BA chunk (4 robust LM steps, O={prob.obs_valid.numel()}, "
+          f"{int(prob.obs_valid.sum())} valid): poses {gba_gap:.2e} (bound {GBA_POSE_ATOL:g}), "
+          f"points within {CORRECT_PT_ATOL:g} on {gba_pt_share:.4%}, cost {float(cost0):.1f} -> "
+          f"card {float(g_card[2]):.1f} / CPU {float(g_cpu[2]):.1f}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    _check(pose_gap <= CORRECT_POSE_ATOL, f"[15c] correction poses {pose_gap}")
+    _check(links >= CORRECT_LINKS_MIN, f"[15c] correction links {links}")
+    _check(pt_share >= 0.99, f"[15c] correction points {pt_share}")
+    _check(gba_gap <= GBA_POSE_ATOL, f"[15c] global BA chunk poses {gba_gap}")
+    _check(gba_pt_share >= 0.99, f"[15c] global BA chunk points {gba_pt_share}")
+
+    # -- 15d. no host sync in the correction and a global BA chunk
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = lc._correct_loop_device(cam, m0, kf_id, cand, S12, fix)
+        chunk = ba_core.bundle_adjust_partial(prob, cam, lam, cost0, active, iters=4,
+                                              robust=True)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check(torch.equal(again.kf_pt_idx, card_m.kf_pt_idx), "[15d] the rerun's links differ")
+    _check(bool(torch.isfinite(chunk[0].cam_Tcw).all()), "[15d] the chunk is not finite")
+    print("[15d] _correct_loop_device and one bundle_adjust_partial chunk ran again under "
+          "set_sync_debug_mode('error'): no host sync")
+
+    out.update(frames=RING_FRAMES, radius_m=RING_RADIUS, revolutions=RING_REVOLUTIONS,
+               render_s=render_s, workers=workers, loops=stats["loops"],
+               keyframes=stats["n_kf"], live_keyframes=tracker.n_live_kf,
+               lost_frames=stats["lost_frames"], growth_events=tracker.growth_events,
+               ate_before_loop_m=before.get("ate", {}).get("rmse"),
+               ate_end_m=ate_end["rmse"], frame_ms_median=statistics.median(frame_ms),
+               frame_ms_mean=statistics.mean(frame_ms), loop_frames=loop_frames,
+               launches_per_frame=counts, launches=launches,
+               correct_vs_cpu={"pose_gap": pose_gap, "links": links, "pt_share": pt_share},
+               gba_chunk_vs_cpu={"pose_gap": gba_gap, "pt_share": gba_pt_share})
+    return out
 
 
 def _bins(angle: np.ndarray) -> np.ndarray:
@@ -1262,8 +1581,10 @@ def main() -> int:
           f"on CUDA events, {amortized_port[1]:.3f} ms/frame host wall ({card})")
     mono_stats = _tum_mono_phase(dev, card)
     reloc_stats = _relocalization_phase(dev, card)
+    oab_stats = _out_and_back_phase(dev, card)
+    loop_stats = _kitti_loop_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[14] phases 1-14 took {run_s:.1f} s, the kernels' build included")
+    print(f"[15] phases 1-15 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -1292,7 +1613,9 @@ def main() -> int:
                              "kitti_insert_sequence": ins_launches,
                              "kitti_sequence": seq_stats["launches"],
                              "tum_mono_sequence": mono_stats["launches"],
-                             "kitti_relocalization": reloc_stats["launches"]},
+                             "kitti_relocalization": reloc_stats["launches"],
+                             "out_and_back": oab_stats["launches"],
+                             "kitti_loop": loop_stats["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -1307,6 +1630,8 @@ def main() -> int:
         "kitti_sequence": {k: v for k, v in seq_stats.items() if k != "launches"},
         "tum_mono_sequence": {k: v for k, v in mono_stats.items() if k != "launches"},
         "kitti_relocalization": {k: v for k, v in reloc_stats.items() if k != "launches"},
+        "out_and_back": {k: v for k, v in oab_stats.items() if k != "launches"},
+        "kitti_loop": {k: v for k, v in loop_stats.items() if k != "launches"},
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's tracking step goes, on one GPU.
 
     python3 examples/profile_torch_step.py
-        [--path mono|kitti-stereo|kitti-insert|kitti-sequence]
+        [--path mono|kitti-stereo|kitti-insert|kitti-sequence|kitti-loop]
         [--steps 10] [--out runs/profile_torch_step]
 
 Runs one of the port's entry points under torch.profiler after a
@@ -19,7 +19,12 @@ warm-up:
 - kitti-sequence: one step is a whole `entry.kitti_sequence` of 30
   stereo frames through a fresh `entry.kitti_system` (the host Tracker:
   initialization, the fused frames, its own keyframe inserts), so the
-  per-frame figures are the step's over 30.
+  per-frame figures are the step's over 30;
+- kitti-loop: the loop correction `_correct_loop_device` and one global
+  BA chunk (`bundle_adjust_partial`, 4 robust LM steps) at the KITTI
+  capacities (K = 384, N = 2000, P = 131072) on
+  `entry.synthetic_loop_map` (22 live keyframes, keyframe 21 closing
+  on keyframe 1), each profiled on its own.
 It reports per step: host wall time, device busy time (the union of the
 kernels' intervals), the device's idle share, the number of kernel
 launches, and the kernels and operators with the most device time.
@@ -101,7 +106,8 @@ def profile_steps(step, steps: int, card: str) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--path", choices=["mono", "kitti-stereo", "kitti-insert", "kitti-sequence"],
+    ap.add_argument("--path", choices=["mono", "kitti-stereo", "kitti-insert", "kitti-sequence",
+                                       "kitti-loop"],
                     default="mono")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="runs/profile_torch_step")
@@ -140,6 +146,27 @@ def main() -> int:
             system.shutdown()
 
         steps["kitti-sequence"] = run_sequence
+    elif args.path == "kitti-loop":
+        from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+        from orb_slam2_test_tpu_torch.solvers import ba_core
+        from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
+
+        f32_matmuls()
+        cfg = entry.KITTI_CFG
+        m_np, T_true = entry.synthetic_loop_map(K=cfg.max_keyframes, N=cfg.n_features,
+                                                P=cfg.max_points)
+        m = entry.map_from_numpy(m_np, dev)
+        cam = entry.LOOP_MAP_CAM
+        S12 = torch.from_numpy((T_true[21] @ np.linalg.inv(T_true[1])).astype(np.float32)).to(dev)
+        kf, cand = torch.tensor(21, device=dev), torch.tensor(1, device=dev)
+        corrected = lc._correct_loop_device(cam, m, kf, cand, S12, True)
+        prob = lc.LoopCloser._build_gba_prob(corrected)
+        lam = torch.full((), 1e-4, device=dev)
+        cost0 = ba_core._robust_cost(prob, cam)
+        active = torch.ones_like(prob.obs_valid)
+        steps["correction"] = lambda: lc._correct_loop_device(cam, m, kf, cand, S12, True)
+        steps["gba-chunk"] = lambda: ba_core.bundle_adjust_partial(prob, cam, lam, cost0,
+                                                                   active, iters=4)
     else:
         cam, cfg = entry.KITTI_CAM, entry.KITTI_CFG
         m = entry.map_from_numpy(entry.bench_map(cfg, entry.KITTI_N_KF, entry.KITTI_N_PT), dev)

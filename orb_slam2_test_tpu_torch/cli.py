@@ -77,8 +77,9 @@ def common_parser(description: str) -> argparse.ArgumentParser:
 
 def run(system: System, seq: datasets.Sequence, args, log=print) -> dict:
     """Track the sequence's frames, then save and evaluate. Returns the
-    summary: frames, keyframes, lost frames, timing (host wall) and, with
-    args.groundtruth, the ATE RMSE and its pair count."""
+    summary: frames, keyframes, lost frames, loops, relocalizations, the
+    capacity growths ({"frame", "cap_kf", "cap_pt"} each), timing (host
+    wall) and, with args.groundtruth, the ATE RMSE and its pair count."""
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     if args.load_checkpoint:
         system.load_checkpoint(args.load_checkpoint)
@@ -148,8 +149,9 @@ def run(system: System, seq: datasets.Sequence, args, log=print) -> dict:
         system.save_checkpoint(args.checkpoint_out)
         log(f"map checkpoint saved to {args.checkpoint_out}")
     summary = {"frames": n, "keyframes": stats["n_kf"], "live_keyframes": tracker.n_live_kf,
-               "lost_frames": stats["lost_frames"], "wall_s": wall,
-               "median_s": st.get("median_s"), "mean_s": st.get("mean_s")}
+               "lost_frames": stats["lost_frames"], "loops": stats["loops"],
+               "relocs": stats["reloc"], "capacity_growth_events": list(tracker.growth_events),
+               "wall_s": wall, "median_s": st.get("median_s"), "mean_s": st.get("mean_s")}
     if args.groundtruth:
         res = absolute_trajectory_error(
             tracker.export_trajectory(), load_trajectory_tum(args.groundtruth),

@@ -9,8 +9,10 @@ tracking). Every map point is projected, gated (validity, frustum,
 distance range, view angle, predicted octave, window radius) and
 matched through one masked [P, N] Hamming matrix; conflicts where
 several points pick one feature go to the smallest (distance, point
-row). Not ported yet: `search_by_bow` and `search_by_sim3` (loop
-closing).
+row). Loop closing's keyframe-to-keyframe searches, `search_by_bow`
+(SearchByBoW: the vocabulary node constraint as a mask on the Hamming
+matrix) and `search_by_sim3` (SearchBySim3: mutual projection through a
+relative Sim3), use the same ±1 matmul for their pair matrices.
 """
 
 from __future__ import annotations
@@ -301,3 +303,89 @@ def search_for_triangulation(
     agree = best21[m12.clamp(min=0)] == rows
     m12 = torch.where((m12 >= 0) & agree, m12, -1).to(torch.int32)
     return m12, (m12 >= 0).sum(dtype=torch.int32)
+
+
+def search_by_bow(
+    frame: FrameData,
+    frame_nodes: torch.Tensor,  # [N] vocabulary node ids (-1 invalid)
+    pts_desc: torch.Tensor,  # [P, 8] candidate map-point descriptors
+    pts_valid: torch.Tensor,  # [P]
+    pt_ids: torch.Tensor,  # [P] global map ids
+    pts_nodes: torch.Tensor,  # [P] vocabulary node ids of the candidates
+    pts_angle: torch.Tensor,  # [P] keypoint angle in the source keyframe
+    max_hamming: int = TH_LOW,
+    ratio: float = 0.7,
+) -> ProjectionMatch:
+    """Keyframe <-> keyframe matching restricted to features in the same
+    vocabulary node (ORBmatcher::SearchByBoW): the node equality is a
+    mask on the full Hamming matrix; then TH_LOW, the 0.7 ratio, the
+    rotation histogram and the conflict resolution."""
+    d = masked_hamming_matrix(pts_desc, frame.desc, pts_valid, frame.valid)
+    node_ok = ((pts_nodes[:, None] == frame_nodes[None, :])
+               & (pts_nodes[:, None] >= 0) & (frame_nodes[None, :] >= 0))
+    d = torch.where(node_ok, d, 512)
+    best_idx, best, second = best_two(d)
+    ok = (best <= max_hamming) & (best.to(torch.float32) < ratio * second.to(torch.float32))
+    pt_feat_raw = torch.where(ok & pts_valid, best_idx, -1)
+    pt_feat_raw = rotation_consistency(pt_feat_raw, pts_angle, frame.angle)
+    feat_pt, pt_feat = _resolve_conflicts(pt_feat_raw, best, frame.uv.shape[0],
+                                          pt_ids.to(torch.int32))
+    return ProjectionMatch(feat_pt=feat_pt, pt_feat=pt_feat,
+                           n_matches=(feat_pt >= 0).sum(dtype=torch.int32))
+
+
+def search_by_sim3(
+    cam: PinholeCamera,
+    f1: FrameData,
+    pc1: torch.Tensor,  # [N1, 3] camera-1-frame positions of f1's map points
+    has1: torch.Tensor,  # [N1] the feature has a map point
+    f2: FrameData,
+    pc2: torch.Tensor,  # [N2, 3]
+    has2: torch.Tensor,
+    S12: torch.Tensor,  # [4, 4] Sim3: pc1 ~ S12 pc2
+    radius: float = 7.5,
+    max_hamming: int = TH_HIGH,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Widen keyframe <-> keyframe matches with a known relative Sim3
+    (ORBmatcher::SearchBySim3): each side's points are projected into
+    the other image, matched inside a window of radius x 1.2^level, and
+    mutually agreeing pairs kept (argmin takes the first minimum).
+    Returns (match12 [N1] -> feature index in f2 or -1, n_matches)."""
+    def proj(p3):
+        z = torch.where(p3[..., 2].abs() > 1e-6, p3[..., 2], 1e-6)
+        return torch.stack([cam.fx * p3[..., 0] / z + cam.cx,
+                            cam.fy * p3[..., 1] / z + cam.cy], dim=-1), p3[..., 2]
+
+    sR = S12[:3, :3]
+    t12 = S12[:3, 3]
+    s = torch.clamp(torch.linalg.norm(sR[:, 0]), min=1e-12)
+    R = sR / s
+    sR21 = (1.0 / s) * R.T
+    t21 = -(R.T @ t12) / s
+
+    p2_in1, z1 = proj(pc2 @ sR.T + t12)  # [N2, 2]
+    p1_in2, z2 = proj(pc1 @ sR21.T + t21)  # [N1, 2]
+    r1 = radius * (1.2 ** f1.level.to(torch.float32))
+    r2 = radius * (1.2 ** f2.level.to(torch.float32))
+    d = masked_hamming_matrix(f1.desc, f2.desc, has1 & f1.valid, has2 & f2.valid)
+
+    # direction A: point j of f2 lands near feature i of f1
+    duA = p2_in1[None, :, 0] - f1.uv[:, None, 0]
+    dvA = p2_in1[None, :, 1] - f1.uv[:, None, 1]
+    winA = ((duA * duA + dvA * dvA) <= (r1[:, None] ** 2)) & (z1[None, :] > 0)
+    dA = torch.where(winA, d, 512)
+    m21 = dA.argmin(dim=0)  # [N2] best f1 feature per f2 point
+    okA = dA.min(dim=0).values <= max_hamming
+
+    # direction B: point i of f1 lands near feature j of f2
+    duB = p1_in2[:, None, 0] - f2.uv[None, :, 0]
+    dvB = p1_in2[:, None, 1] - f2.uv[None, :, 1]
+    winB = ((duB * duB + dvB * dvB) <= (r2[None, :] ** 2)) & (z2[:, None] > 0)
+    dB = torch.where(winB, d, 512)
+    m12 = dB.argmin(dim=1)  # [N1] best f2 feature per f1 point
+    okB = dB.min(dim=1).values <= max_hamming
+
+    rows = torch.arange(m12.shape[0], device=d.device)
+    agree = okB & (m21[m12] == rows) & okA[m12]
+    out = torch.where(agree, m12, -1).to(torch.int32)
+    return out, (out >= 0).sum(dtype=torch.int32)

@@ -32,13 +32,14 @@ Not ported, on purpose:
   (the caller checks `_fused_applicable`), so the branch cannot run.
 - `_grow_map_device`'s `stages` argument truncates the program for
   profiling on the TPU; torch.profiler attributes time per operator.
-- The profiler spans and the loop-correction half of loop closing
-  (Sim3, the essential graph, the chunked global BA) belong to later
-  slices. With a vocabulary (`enable_place_recognition`) relocalization
-  queries the keyframe database and solves PnP RANSAC, and every
-  resolved keyframe enters the database through the loop closer's
-  detection; without one, relocalization tries the reference keyframe,
-  as the JAX package does.
+- The profiler spans belong to a later slice.
+
+With a vocabulary (`enable_place_recognition`) relocalization queries
+the keyframe database and solves PnP RANSAC, and every resolved
+keyframe goes through the loop closer at its flush: one chunk of a
+pending global BA, then detection, Sim3 and, on a closed loop, the
+correction (engine/loop_closing.py); without one, relocalization tries
+the reference keyframe, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -611,6 +612,9 @@ class Tracker:
         # keyframes (reference Tracking::InformOnlyTracking)
         self.localization_only = False
         self.loop_closer: Optional[LoopCloser] = None  # enable_place_recognition
+        # capacity growths, {"frame", "cap_kf", "cap_pt"} each (the JAX
+        # run's summary.json records them from its per-frame diag)
+        self.growth_events: list[dict] = []
         self.reset()
 
     def enable_place_recognition(self, voc: Vocabulary, fix_scale: bool = False,
@@ -638,6 +642,7 @@ class Tracker:
         self.last_Tcw = np.eye(4)
         self._prev_Tcw = np.eye(4)
         self.velocity = None  # [4, 4] or None
+        self._after_loop = False  # a loop re-anchored last_Tcw since the last velocity
         self.ref_kf = 0  # an int, or a 0-d device tensor until flushed
         self.ref_kf_tracked = 0
         self.frames_since_kf = 0
@@ -742,7 +747,12 @@ class Tracker:
             # mLastFrame.mTcw is empty, so the next frame tracks the
             # reference keyframe). The JAX package keeps the relocalized
             # frame's own correction, about the identity, as a velocity.
-            self.velocity = None if relocalizing else self.last_Tcw @ _inv4(self._prev_Tcw)
+            # After a loop correction likewise: the previous pose was
+            # re-anchored, not tracked, and a velocity across it carries
+            # the correction's residual into the next prediction.
+            self.velocity = (None if relocalizing or self._after_loop
+                             else self.last_Tcw @ _inv4(self._prev_Tcw))
+            self._after_loop = False
             if not self.localization_only:
                 self._maybe_insert_keyframe(frame, use_depth)
             self.last_feat_pt = self.cur_feat_pt
@@ -1252,6 +1262,11 @@ class Tracker:
         self.cap = self.cfg.map_capacity
         self.map = grow_map(self.map, old_cap, self.cap)
         self._obs_bm = None
+        if self.loop_closer is not None:
+            # a pending global BA goes on at the new shapes
+            self.loop_closer.grow_pending(self.cfg.max_keyframes, self.cfg.max_points)
+        self.growth_events.append({"frame": self.frame_id - 1, "cap_kf": self.cfg.max_keyframes,
+                                   "cap_pt": self.cfg.max_points})
 
     def flush_backend(self) -> None:
         """Resolve every deferred insert, oldest first, each keyframe
@@ -1288,17 +1303,41 @@ class Tracker:
         if torch.is_tensor(self.ref_kf):
             self.ref_kf = int(self.ref_kf)
         if self.loop_closer is not None:
-            # the chunked global BA's advance and the loop branch (carry
-            # the tracked pose onto the corrected keyframe, drop the
-            # motion model) come with the loop-correction slice; the
-            # closer detects and records candidates meanwhile
-            self.map, _ = self.loop_closer.on_new_keyframe(self.map, kf)
+            # spans in the JAX package's order: "global_ba_chunk", then
+            # "loop_closing". A pending global BA advances by one chunk
+            # before this keyframe's detection (a closed loop drops the
+            # chunks left, reference mbStopGBA)
+            self.map, _ = self.loop_closer.advance_global_ba(self.map)
+            m_before = self.map
+            m, closed = self.loop_closer.on_new_keyframe(m_before, kf)
             if self.loop_closer.last_candidate is not None:
                 self.last_diag["loop_candidate"] = self.loop_closer.last_candidate
+            if closed:
+                self.stats["loops"] += 1
+                # the fuse rewrote links map-wide: the cached observer
+                # bitmap is stale, rebuilt lazily
+                self._obs_bm = None
+                # the keyframes moved while tracking went on: keep the
+                # tracked pose relative to the moved keyframe, last' =
+                # last inv(kf_old) kf_new (reference
+                # Tracking::UpdateLastFrame), then drop the motion model:
+                # the next two frames track the reference keyframe, so the
+                # next velocity joins two poses tracked on the corrected
+                # map (the JAX Tracker takes one across the re-anchor;
+                # ROADMAP queue 3)
+                moved = se3_inverse(m_before.kf_Tcw[kf]) @ m.kf_Tcw[kf]
+                self.last_Tcw = self.last_Tcw @ moved.cpu().numpy().astype(np.float64)
+                self.velocity = None
+                self._after_loop = True
+                self._ref_Tcw_host = None
+            self.map = m
 
     def drain_backend(self) -> None:
-        """Resolve the deferred inserts (before an export or a
-        checkpoint). The chunked global BA that the JAX package runs to
-        completion here comes with loop correction, so this is
-        `flush_backend`."""
+        """Resolve the deferred inserts and run a pending global BA to
+        its end (before an export or a checkpoint; the reference's
+        Shutdown waits while isRunningGBA())."""
         self.flush_backend()
+        if self.loop_closer is not None:
+            done = False
+            while not done:
+                self.map, done = self.loop_closer.advance_global_ba(self.map)

@@ -833,3 +833,294 @@ def sequence_step(system: System, frame: tuple):
     when lost."""
     t, left, right = frame
     return system.track_stereo(left, right, t)
+
+
+# ---------------------------------------------------------------------------
+# Loop closing: the out-and-back ring and the KITTI-geometry loop
+# ---------------------------------------------------------------------------
+
+# tests/test_loop_closing_e2e.py's tracker settings for its 320x240 RGB-D
+# scenes: 400 features, a small map, depth thresholds for a 0.08 m
+# baseline, and close-deficit constants scaled to the feature count
+OUT_AND_BACK_CFG = dict(
+    n_features=400, max_keyframes=64, max_points=8192, local_kf_cap=8, ba_fixed_cap=4,
+    ba_pt_cap=1024, n_triangulate_neighbors=2, min_depth_init_points=100,
+    max_frames_between_kf=3, min_local_inliers=20, th_depth=150.0,
+    kf_close_tracked_max=40, kf_close_untracked_min=28,
+)
+
+
+class OutAndBackScene(NamedTuple):
+    """The out-and-back ring of tests/test_loop_closing_e2e.py: 320x240
+    RGB-D views from a 2 m ring looking out at a wall of 500 textured
+    points, 1.25 revolutions (the start is seen again).
+
+    cam, poses [n] Tcw, images [n] float32 [H, W], depths [n] metres,
+    vocabulary (k = 10, depth 4, built from the sequence's own ORB
+    descriptors, as the JAX test trains it)."""
+
+    cam: PinholeCamera
+    poses: list
+    images: list
+    depths: list
+    vocabulary: Vocabulary
+
+
+def out_and_back_scene(rng: np.random.Generator, n_frames: int = 120,
+                       device: torch.device | str = "cuda") -> OutAndBackScene:
+    """Render the ring (rng as the JAX test's fixture: default_rng(0))
+    and train its vocabulary; the ORB extraction for the vocabulary runs
+    on `device` (the card unless the caller asks for another)."""
+    from orb_slam2_test_tpu_torch.bow.vocabulary import build_vocabulary
+    from orb_slam2_test_tpu_torch.utils.synthetic import (
+        _landmark_patches,
+        default_camera,
+        render_frame,
+    )
+
+    cam = default_camera(320, 240)
+    cam = cam._replace(bf=0.08 * cam.fx)
+    R, n_lm = 2.0, 500
+    phi = rng.uniform(0, 2 * np.pi, n_lm)
+    r = rng.uniform(R + 6.0, R + 7.0, n_lm)
+    yy = rng.uniform(-3.0, 3.0, n_lm)
+    landmarks = np.stack([r * np.sin(phi), yy, R - r * np.cos(phi)], axis=1).astype(np.float32)
+    inten = rng.uniform(140, 255, n_lm).astype(np.float32)
+    patches = _landmark_patches(n_lm)
+    normals = -np.stack([np.sin(phi), np.zeros(n_lm), -np.cos(phi)], axis=1).astype(np.float32)
+    poses, images, depths = [], [], []
+    for i in range(n_frames):
+        th = 2 * np.pi * i / 96
+        C = np.array([R * np.sin(th), 0.0, R - R * np.cos(th)])
+        zax = np.array([np.sin(th), 0.0, -np.cos(th)])  # outward radial
+        yax = np.array([0.0, 1.0, 0.0])
+        Twc = np.eye(4, dtype=np.float32)
+        Twc[:3, :3] = np.stack([np.cross(yax, zax), yax, zax], axis=1)
+        Twc[:3, 3] = C
+        T = np.linalg.inv(Twc).astype(np.float32)
+        img, dep = render_frame(cam, T, landmarks, inten, patches=patches, normals=normals,
+                                return_depth=True)
+        poses.append(T)
+        images.append(img)
+        depths.append(dep)
+    descs = []
+    step = max(n_frames // 6, 1)
+    for img in images[::step][:6]:
+        f = build_frame_mono(_to_device(img.astype(np.float32), device), 0.0, cam,
+                             n_features=OUT_AND_BACK_CFG["n_features"])
+        descs.append(f.desc.cpu().numpy().view(np.uint32)[f.valid.cpu().numpy()])
+    voc = build_vocabulary(np.concatenate(descs), k=10, depth=4, seed=0)
+    return OutAndBackScene(cam=cam, poses=poses, images=images, depths=depths, vocabulary=voc)
+
+
+def out_and_back_tracker(scene: OutAndBackScene, device: torch.device | str = "cuda"):
+    """The JAX test's Tracker for the ring: its settings, place
+    recognition with a fixed scale, and 5 keyframes between loops."""
+    from orb_slam2_test_tpu_torch.engine.tracking import Tracker
+
+    tracker = Tracker(scene.cam, TrackerConfig(**OUT_AND_BACK_CFG), device=device)
+    tracker.enable_place_recognition(scene.vocabulary, fix_scale=True, min_kf_gap=5)
+    return tracker
+
+
+# examples/make_synth_data.py's tracker overrides for its synthetic KITTI
+# loops (fewer matchable blobs than real imagery at 2000 features): the
+# settings of the JAX package's runs/kitti00_full
+KITTI_LOOP_OVERRIDES = dict(
+    min_init_matches=60, min_init_triangulated=40, min_local_inliers=20,
+    max_frames_between_kf=5, min_depth_init_points=150,
+)
+KITTI_LOOP_LANDMARKS = 6000  # make_synth_data.py kitti's default
+
+
+class LoopSequence(NamedTuple):
+    """A rendered stereo loop: images [n, 2, H, W] uint8 (left, right),
+    T_true [n, 4, 4] Tcw, the timestamps i / fps."""
+
+    images: np.ndarray
+    T_true: np.ndarray
+    fps: float
+
+    def frames(self) -> list:
+        """(timestamp, left, right) per frame, as MemorySequence holds them."""
+        return [(i / self.fps, self.images[i, 0], self.images[i, 1])
+                for i in range(len(self.images))]
+
+
+def kitti_loop_sequence(n_frames: int, radius: float, revolutions: float,
+                        workers: int = 1, seed: int = 0,
+                        n_landmarks: int = KITTI_LOOP_LANDMARKS) -> LoopSequence:
+    """The KITTI-geometry stereo loop of examples/make_synth_data.py's
+    `kitti` (KITTI_CAM, 1241x376, baseline 0.537 m, a corridor of
+    textured quads 3-12 m from a circular path), rendered into memory by
+    `workers` processes (about 1.2 s per stereo frame on one core)."""
+    from orb_slam2_test_tpu_torch.utils.synthetic import render_loop_stereo
+
+    poses, images = render_loop_stereo(n_frames, KITTI_CAM, radius, revolutions,
+                                       n_landmarks=n_landmarks, seed=seed, workers=workers)
+    return LoopSequence(images=images, T_true=poses, fps=10.0)
+
+
+def kitti_loop_system(device: torch.device | str = "cuda", vocabulary="default",
+                      max_keyframes: int = KITTI_CFG.max_keyframes,
+                      max_points: int = KITTI_CFG.max_points, **overrides) -> System:
+    """`kitti_system` with the synthetic KITTI loop's tracker overrides,
+    the packaged vocabulary (place recognition, loop closing with a
+    fixed scale) and the given starting capacities (they grow as the
+    map fills)."""
+    return kitti_system(device, vocabulary=vocabulary, max_keyframes=max_keyframes,
+                        max_points=max_points, **{**KITTI_LOOP_OVERRIDES, **overrides})
+
+
+def kitti_loop_run(frames: int = 1200, radius: float = 60.0, revolutions: float = 2.0,
+                   max_keyframes: int = 128, max_points: int = 49152, workers: int = 1,
+                   seed: int = 0, device: torch.device | str = "cuda", log=print,
+                   diag: str | None = None) -> dict:
+    """The multi-lap run of the JAX package's runs/kitti00_full through
+    the port: render the loop (1200 frames, radius 60 m, ~2 laps by
+    default), then `cli.run` on a MemorySequence with small starting
+    capacities so the map grows, the ATE against the rendered truth.
+    Returns cli.run's summary plus the render time and the ms of every
+    frame (host wall) and of the frames that closed a loop."""
+    import os
+    import tempfile
+    import time
+
+    from orb_slam2_test_tpu_torch import cli
+    from orb_slam2_test_tpu_torch.io.datasets import MemorySequence
+    from orb_slam2_test_tpu_torch.io.trajectory import save_trajectory_tum
+
+    t0 = time.perf_counter()
+    seq = kitti_loop_sequence(frames, radius, revolutions, workers=workers, seed=seed)
+    render_s = time.perf_counter() - t0
+    log(f"rendered {frames} stereo frames {KITTI_CAM.width}x{KITTI_CAM.height} "
+        f"(radius {radius} m, {revolutions} laps) in {render_s:.1f} s with {workers} workers")
+    system = kitti_loop_system(device, max_keyframes=max_keyframes, max_points=max_points)
+    tracker = system.tracker
+    frame_ms, loop_frames = [], []
+    track_stereo = system.track_stereo
+
+    def timed(left, right, t):
+        loops = tracker.stats["loops"]
+        t1 = time.perf_counter()
+        out = track_stereo(left, right, t)
+        frame_ms.append((time.perf_counter() - t1) * 1e3)
+        if tracker.stats["loops"] > loops:
+            loop_frames.append({"frame": len(frame_ms) - 1, "ms": frame_ms[-1]})
+        return out
+
+    system.track_stereo = timed
+    with tempfile.TemporaryDirectory() as d:
+        gt = os.path.join(d, "groundtruth.txt")
+        save_trajectory_tum(gt, [(i / seq.fps, T) for i, T in enumerate(seq.T_true)])
+        argv = ["(in memory)", "(in memory)", "--groundtruth", gt,
+                "--traj-out", os.path.join(d, "traj.txt"),
+                "--kf-traj-out", os.path.join(d, "kf.txt"), "--device", str(device)]
+        if diag:
+            argv += ["--diag", diag]
+        args = cli.common_parser("").parse_args(argv)
+        summary = cli.run(system, MemorySequence("stereo", seq.frames()), args, log=log)
+    summary.update(render_s=render_s, frame_ms=frame_ms, loop_frames=loop_frames,
+                   radius=radius, revolutions=revolutions, seed=seed)
+    return summary
+
+
+# synthetic_loop_map's camera: 320x240, the out-and-back ring's 0.08 m baseline
+LOOP_MAP_CAM = PinholeCamera(fx=256.0, fy=256.0, cx=160.0, cy=120.0, width=320, height=240,
+                             bf=0.08 * 256.0)
+_LOOP_REVISIT = 20  # keyframes from here on revisit the start
+_LOOP_STEP_DEG = 18.0
+
+
+def _ring_pose(theta: float) -> np.ndarray:
+    """Tcw on the out-and-back ring, looking outward."""
+    R = 2.0
+    C = np.array([R * np.sin(theta), 0.0, R - R * np.cos(theta)])
+    zax = np.array([np.sin(theta), 0.0, -np.cos(theta)])
+    yax = np.array([0.0, 1.0, 0.0])
+    Rwc = np.stack([np.cross(yax, zax), yax, zax], axis=1)
+    Twc = np.eye(4)
+    Twc[:3, :3] = Rwc
+    Twc[:3, 3] = C
+    return np.linalg.inv(Twc)
+
+
+def synthetic_loop_map(n_kf: int = 22, K: int = 32, N: int = 200, P: int = 4096,
+                       n_world: int = 1600, seed: int = 0) -> tuple[dict, list]:
+    """A small map that closes a loop, without tracking: n_kf RGB-D
+    keyframes (LOOP_MAP_CAM) 18 degrees apart on the out-and-back ring,
+    looking out at a wall of n_world points 6-7 m away, their poses
+    drifted along the path (1 cm and 0.17 degrees more per keyframe).
+    Keyframes from 20 on revisit the views of 0, 1, ... but hold
+    duplicates of the points the start saw (no association across the
+    loop). Features are the points' random descriptors with 0-3 flipped
+    bits at their projections (0.3 px noise), with depth; points are
+    back-projected from their first keyframe's drifted pose; each
+    keyframe's parent is the one before. Returns (the map as the JAX
+    package's numpy layouts, the true poses Tcw)."""
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapCapacity
+
+    rng = np.random.default_rng(seed)
+    cam = LOOP_MAP_CAM
+    phi = rng.uniform(0, 2 * np.pi, n_world)
+    r = rng.uniform(8.0, 9.0, n_world)
+    Xw = np.stack([r * np.sin(phi), rng.uniform(-3, 3, n_world), 2.0 - r * np.cos(phi)], 1)
+    wdesc = rng.integers(0, 2 ** 32, (n_world, 8), dtype=np.uint64).astype(np.uint32)
+    wangle = rng.uniform(0, 2 * np.pi, n_world).astype(np.float32)
+
+    m = map_to_numpy(make_empty_map(
+        MapCapacity(max_keyframes=K, max_features=N, max_points=P), "cpu"))
+    T_true = [_ring_pose(np.deg2rad(_LOOP_STEP_DEG * (i % _LOOP_REVISIT)) + 0.01 * (i >= _LOOP_REVISIT))
+              for i in range(n_kf)]
+    T_est = [se3_exp(torch.tensor([0.01, 0.0, 0.01, 0.0, 0.003, 0.0], dtype=torch.float64)
+                     * i).numpy() @ T for i, T in enumerate(T_true)]
+    pt_of_world = {}  # world point -> map point (the start's and the revisit's apart)
+    n_pt = 0
+    for i in range(n_kf):
+        T, Te = T_true[i], T_est[i]
+        pc = Xw @ T[:3, :3].T + T[:3, 3]
+        z = pc[:, 2]
+        u = cam.fx * pc[:, 0] / np.maximum(z, 1e-3) + cam.cx
+        v = cam.fy * pc[:, 1] / np.maximum(z, 1e-3) + cam.cy
+        vis = np.nonzero((z > 0.5) & (u >= 2) & (u < cam.width - 2) & (v >= 2)
+                         & (v < cam.height - 2))[0][:N]
+        n = len(vis)
+        uv = np.stack([u[vis], v[vis]], 1) + rng.normal(0, 0.3, (n, 2))
+        desc = wdesc[vis].copy()
+        for row in range(n):
+            for b in rng.choice(256, rng.integers(0, 4), replace=False):
+                desc[row, b // 32] ^= np.uint32(1 << (b % 32))
+        m["kf_Tcw"][i] = Te
+        m["kf_valid"][i] = True
+        m["kf_timestamp"][i] = 0.1 * i
+        m["kf_frame_id"][i] = 3 * i
+        m["kf_uv"][i, :n] = uv
+        m["kf_angle"][i, :n] = wangle[vis]
+        m["kf_depth"][i, :n] = z[vis]
+        m["kf_ur"][i, :n] = uv[:, 0] - cam.bf / z[vis]
+        m["kf_desc"][i, :n] = desc
+        m["kf_kp_valid"][i, :n] = True
+        m["kf_parent"][i] = i - 1
+        Twc_est = np.linalg.inv(Te)
+        for row, w in enumerate(vis):
+            key = (w, i >= _LOOP_REVISIT)
+            if key not in pt_of_world:
+                ray = np.array([(uv[row, 0] - cam.cx) / cam.fx, (uv[row, 1] - cam.cy) / cam.fy, 1])
+                X = Twc_est[:3, :3] @ (ray * z[w]) + Twc_est[:3, 3]
+                dist = np.linalg.norm(X - Twc_est[:3, 3])
+                p = n_pt
+                n_pt += 1
+                pt_of_world[key] = p
+                m["pt_xyz"][p] = X
+                m["pt_valid"][p] = True
+                m["pt_desc"][p] = wdesc[w]
+                m["pt_normal"][p] = (X - Twc_est[:3, 3]) / dist
+                m["pt_max_dist"][p] = 1.1 * dist
+                m["pt_min_dist"][p] = 1.1 * dist / 1.2 ** 7
+                m["pt_ref_kf"][p] = i
+                m["pt_first_kf"][p] = 3 * i
+                m["pt_visible"][p] = m["pt_found"][p] = 1.0
+            m["kf_pt_idx"][i, row] = pt_of_world[key]
+    m["n_kf"] = np.int32(n_kf)
+    m["n_pt"] = np.int32(n_pt)
+    return m, T_true

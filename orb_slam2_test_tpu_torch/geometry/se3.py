@@ -112,3 +112,42 @@ def se3_apply(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return (R @ x[..., None])[..., 0] + t
+
+
+def quat_from_rotmat(R: torch.Tensor) -> torch.Tensor:
+    """R [..., 3, 3] -> unit quaternion [..., 4] as (x, y, z, w), by
+    Shepperd's four candidate constructions and a select of the best
+    conditioned one (no branch)."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def cand(diag, a, b, c, pos):
+        h = torch.sqrt(torch.clamp(diag, min=_EPS)) * 0.5
+        parts = [a, b, c]
+        parts.insert(pos, 4.0 * h * h)
+        return torch.stack(parts, dim=-1) / (4.0 * h[..., None])
+
+    q_w = cand(1.0 + tr, m21 - m12, m02 - m20, m10 - m01, 3)
+    q_x = cand(1.0 + m00 - m11 - m22, m01 + m10, m02 + m20, m21 - m12, 0)
+    q_y = cand(1.0 - m00 + m11 - m22, m01 + m10, m12 + m21, m02 - m20, 1)
+    q_z = cand(1.0 - m00 - m11 + m22, m02 + m20, m12 + m21, m10 - m01, 2)
+    cond_w = (tr > 0.0)[..., None]
+    cond_x = ((m00 >= m11) & (m00 >= m22))[..., None]
+    cond_y = (m11 >= m22)[..., None]
+    q = torch.where(cond_w, q_w, torch.where(cond_x, q_x, torch.where(cond_y, q_y, q_z)))
+    return q / torch.linalg.norm(q, dim=-1, keepdim=True)
+
+
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Inverse Rodrigues through the quaternion, R [..., 3, 3] -> omega
+    [..., 3]: omega = 2 atan2(|v|, w) v / |v| on the w >= 0 hemisphere,
+    stable up to theta = pi."""
+    q = quat_from_rotmat(R)
+    v, w = q[..., :3], q[..., 3]
+    sgn = torch.where(w < 0.0, -1.0, 1.0)
+    v = v * sgn[..., None]
+    w = w * sgn
+    n = torch.sqrt((v * v).sum(-1) + _EPS * _EPS)
+    return (2.0 * torch.atan2(n, w) / n)[..., None] * v

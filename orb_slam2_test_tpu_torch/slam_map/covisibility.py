@@ -4,9 +4,8 @@ point -> observer bitmap.
 Port of orb_slam2_test_tpu/slam_map/covisibility.py (reference:
 KeyFrame::UpdateConnections, MapPoint::GetObservations). Weights are
 derived from `kf_pt_idx` or the bitmap on demand, never maintained
-incrementally. Not ported yet: `observation_indicator` and the full
-[K, K] form of `covisibility_weights` (loop closing), `local_keyframes`
-and `add_loop_edge`.
+incrementally. The full [K, K] matrix (the essential graph's strong
+edges) is one [K, P] x [P, K] product of the observation indicator.
 """
 
 from __future__ import annotations
@@ -35,11 +34,35 @@ def observation_counts(m: MapState) -> torch.Tensor:
     return put_add(torch.zeros(P, dtype=torch.int32, device=flat.device), flat, 1)
 
 
-def covisibility_weights(m: MapState, query_kf: torch.Tensor) -> torch.Tensor:
-    """[Q, K] int32: weight[q, j] = number of the query keyframe's
-    observations whose point keyframe j also observes (0 at j = q). One
-    [P] indicator per query and one [K, N] gather-sum."""
+def observation_indicator(m: MapState, dtype=torch.float32) -> torch.Tensor:
+    """[K, P] 0/1 matrix: keyframe k observes point p. Unlinked features
+    write into a sentinel column P that is cut off."""
+    K, N = m.kf_pt_idx.shape
+    P = m.pt_valid.shape[0]
+    col = torch.where(_linked(m), m.kf_pt_idx, P).to(torch.int64)
+    flat = torch.arange(K, device=col.device)[:, None] * (P + 1) + col
+    ind = torch.zeros(K * (P + 1), dtype=dtype, device=col.device)
+    ind.index_fill_(0, flat.reshape(-1), 1.0)
+    return ind.view(K, P + 1)[:, :P]
+
+
+def covisibility_weights(m: MapState, query_kf: torch.Tensor | None = None) -> torch.Tensor:
+    """Covisibility weights, int32: weight[q, j] = number of the query
+    keyframe's observations whose point keyframe j also observes (0 at
+    j = q).
+
+    query_kf None: the full [K, K] matrix, one [K, P] x [P, K] product
+    of the observation indicator. Its entries are counts <= N, exact in
+    float32 with float32 accumulation (TF32 stays off,
+    `utils.precision.f32_matmuls`).
+    query_kf [Q]: [Q, K] rows, one [P] indicator per query and one
+    [K, N] gather-sum."""
     K = m.kf_valid.shape[0]
+    if query_kf is None:
+        ind = observation_indicator(m)
+        w = ind @ ind.T
+        eye = torch.eye(K, dtype=torch.bool, device=w.device)
+        return torch.where(eye, 0.0, w).to(torch.int32)
     P = m.pt_valid.shape[0]
     linked = _linked(m)
     q = query_kf.to(torch.int64)
@@ -80,6 +103,13 @@ def assign_parent(
     assign = (parent < 0) & (take(w, best) > 0)
     new_parent = torch.where(assign, best.to(torch.int32), parent)
     return m._replace(kf_parent=put_row(m.kf_parent, kf_id, new_parent))
+
+
+def add_loop_edge(m: MapState, kf_a: torch.Tensor, kf_b: torch.Tensor) -> MapState:
+    """Record a loop-closure edge between two keyframes, both ways
+    (KeyFrame::AddLoopEdge); 0-d index tensors, no host read."""
+    le = put_row(m.kf_loop_edge, kf_a, kf_b.to(m.kf_loop_edge.dtype))
+    return m._replace(kf_loop_edge=put_row(le, kf_b, kf_a.to(le.dtype)))
 
 
 def build_observer_bitmap(m: MapState) -> torch.Tensor:

@@ -26,6 +26,11 @@ Place recognition: `transform` on the packaged L6 vocabulary equals the
 CPU's words and nodes, and adaptive PnP RANSAC at 25% inliers on the
 card equals the CPU's on the same recorded samples (pose atol 1e-3,
 inliers >= 99%), though the SVD signs differ.
+Loop correction: `_correct_loop_device` and one global BA chunk on
+`entry.synthetic_loop_map` on the card against the CPU port from the
+same inputs (poses atol 1e-3 and 5e-3 after the chunk, links >= 99%
+equal, points within 1e-2 on >= 99%), both again under
+set_sync_debug_mode("error").
 """
 
 import os
@@ -327,3 +332,53 @@ def test_system_on_cuda_raises_without_a_card():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("raised:") and "CUDA card" in out.stdout
+
+
+def test_loop_correction_on_the_card_matches_cpu(dev):
+    from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+    from orb_slam2_test_tpu_torch.solvers import ba_core
+    from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
+
+    f32_matmuls()
+    m_np, T_true = entry.synthetic_loop_map()
+    cam = entry.LOOP_MAP_CAM
+    S12 = torch.from_numpy((T_true[21] @ np.linalg.inv(T_true[1])).astype(np.float32))
+    kf, cand = torch.tensor(21), torch.tensor(1)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        m = entry.map_from_numpy(m_np, d)
+        # the inputs go to the device before the sync check: a copy from
+        # the host synchronizes
+        kf_d, cand_d, S12_d = kf.to(d), cand.to(d), S12.to(d)
+        corrected = lc._correct_loop_device(cam, m, kf_d, cand_d, S12_d, True)
+        prob = lc.LoopCloser._build_gba_prob(corrected)
+        lam = torch.full((), 1e-4, device=d)
+        cost0 = ba_core._robust_cost(prob, cam)
+        chunk = ba_core.bundle_adjust_partial(prob, cam, lam, cost0,
+                                              torch.ones_like(prob.obs_valid), iters=4)
+        out[d.type] = (entry.map_to_numpy(corrected), chunk[0].cam_Tcw.cpu(),
+                       chunk[0].pt_xyz.cpu())
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                lc._correct_loop_device(cam, m, kf_d, cand_d, S12_d, True)
+                ba_core.bundle_adjust_partial(prob, cam, lam, cost0,
+                                              torch.ones_like(prob.obs_valid), iters=4)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+    A, B = out["cuda"][0], out["cpu"][0]
+    live = A["kf_valid"]
+    pose_gap = np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max()
+    links = (A["kf_pt_idx"][live] == B["kf_pt_idx"][live]).mean()
+    pv = A["pt_valid"]
+    pt_share = (np.abs(A["pt_xyz"][pv] - B["pt_xyz"][pv]).max(-1) <= 1e-2).mean()
+    chunk_gap = float((out["cuda"][1] - out["cpu"][1]).abs().max())
+    chunk_pts = float(((out["cuda"][2] - out["cpu"][2]).abs().max(-1).values <= 1e-2)
+                      .float().mean())
+    print(f"correction: poses {pose_gap:.2e}, links {links:.4f}, points {pt_share:.4f}; "
+          f"chunk: poses {chunk_gap:.2e}, points {chunk_pts:.4f}")
+    assert pose_gap <= 1e-3 and links >= 0.99 and pt_share >= 0.99
+    np.testing.assert_array_equal(A["kf_loop_edge"], B["kf_loop_edge"])
+    # the chunk's bound is chip_smoke.py's GBA_POSE_ATOL
+    assert chunk_gap <= 5e-3 and chunk_pts >= 0.99

@@ -184,9 +184,10 @@ def _with_live(m: dict, n: int) -> dict:
 def test_detect_loop_matches_jax(loop_map):
     m, voc, K = loop_map
     jc, tc = _closers(voc)
-    # the JAX closer's Sim3 stage is held out (the port's is not there
-    # yet), so both run detection alone
+    # both closers' Sim3 stage is held out (tests/test_torch_loop_closing.py
+    # holds it to the JAX package), so both run detection alone
     jc._compute_and_correct = lambda mm, kf, cand: (False, mm)
+    tc._compute_and_correct = lambda mm, kf, cand: (False, mm)
     jfound = []
     detect = jc._detect_loop
 

@@ -122,7 +122,9 @@ def test_port_never_imports_jax():
     for mod in ("ops.stereo", "ops.matching", "slam_map.mapstate", "slam_map.covisibility",
                 "engine.tracking", "engine.frame", "engine.matchers", "entry",
                 "solvers.initializer", "io.settings", "io.datasets", "io.trajectory",
-                "io.checkpoint", "evaluation.ate", "system", "cli", "utils.synthetic"):
+                "io.checkpoint", "evaluation.ate", "system", "cli", "utils.synthetic",
+                "geometry.sim3", "solvers.sim3_solver", "solvers.pose_graph",
+                "solvers.ba_core", "engine.loop_closing"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
     assert has_yaml == "False" and has_cv2 == "False"

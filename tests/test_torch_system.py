@@ -222,6 +222,29 @@ def test_memory_sequence_drives_run(recipe):
     assert summary["keyframes"] >= 2 and system.tracking_state == "OK"
 
 
+def test_run_summary_records_loops_and_growth(recipe):
+    """cli.run prints the loop count and returns it, with the capacity
+    growths the Tracker made (a map of 4 keyframe slots grows on the
+    recipe's sequence), as the JAX run's summary.json records them."""
+    d, settings = recipe
+    seq_files = tdatasets.load_tum_mono(d)
+    seq = tdatasets.MemorySequence("mono", [seq_files.load(it) for it in seq_files.items])
+    system = System(settings, "monocular", device="cpu", max_keyframes=4)
+    out = os.path.join(d, "grow")
+    os.makedirs(out, exist_ok=True)
+    args = cli.common_parser("").parse_args(
+        [settings, d, "--traj-out", os.path.join(out, "t.txt"),
+         "--kf-traj-out", os.path.join(out, "k.txt")])
+    lines = []
+    summary = cli.run(system, seq, args, log=lines.append)
+    assert any("loops: 0" in line for line in lines)
+    assert summary["loops"] == 0 and summary["relocs"] == 0
+    events = summary["capacity_growth_events"]
+    assert events and events[0]["cap_kf"] == 8 and events[0]["cap_pt"] == 4096
+    assert 0 < events[0]["frame"] < summary["frames"]
+    assert system.tracker.cfg.max_keyframes == events[-1]["cap_kf"]
+
+
 def _bench_tracker_map(cfg):
     return entry.bench_map(cfg, 5, 300, seed=2)
 
