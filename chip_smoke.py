@@ -137,7 +137,34 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    the card and on the CPU port: live poses within CORRECT_POSE_ATOL,
    links >= 99% equal, points within CORRECT_PT_ATOL on >= 99%, the
    chunk's poses within GBA_POSE_ATOL; (d) both again under
-   torch.cuda.set_sync_debug_mode("error") (no host sync).
+   torch.cuda.set_sync_debug_mode("error") (no host sync);
+16. the distributed BA and concurrent multi-sequence mapping
+   (parallel/): (a) `entry.dryrun_multichip(1)`, the distributed BA on a
+   256-camera synthetic problem and a data-parallel ORB frontend: a
+   finite cost, >= 1 patch_gather launch; (b) `dist_bundle_adjust` at
+   the size of the JAX package's last multi-sequence joint problem
+   (`synthetic_ba_problem(271, 53871, 5)`, 8 LM iterations): 1 shard, 8
+   shards in one process and a 1-rank NCCL group; with deterministic
+   index adds 8 shards within 5e-4 of 1 shard and NCCL equal to it,
+   15 collectives per LM iteration, the card within 1e-3 of the CPU
+   port, no host sync, each run's ms and ms per LM iteration on CUDA
+   events, and `measure_scaling_problem` at 1, 2, 4 and 8 shards;
+   (c) three KITTI stereo sequences (`entry.kitti_multi_sequence`, seeds
+   0-2, MULTI_SEQ_FRAMES frames each) through their own
+   `entry.kitti_system` (K = 384, P = 131072, async backend), round-robin
+   through `cli.run_multi_seq` with a joint BA every MULTI_SEQ_EVERY
+   frames summed and a final one (8 LM iterations, max_cams 256, one
+   shard): 0 lost frames, 3 + 2 launches on every tracked frame, each
+   joint BA's cost below its merged problem's cost before it (the final
+   polish, which follows no tracked frame and starts converged, within
+   POLISH_COST_RTOL above it), each
+   sequence's ATE <= 0.05 m after the final joint BA, the final joint
+   BA per sequence within BLOCK_DIAG_ATOL of that sequence's solo
+   `dist_bundle_adjust` of its own `compact_problem`, and the final
+   joint BA again on the CPU port from the same maps within 1e-3;
+   (d) two processes on the one card joined by gloo (NCCL refuses two
+   ranks on one GPU) run the final joint BA of (c) on its maps: equal to
+   the 2-shard one-process run, deterministic index adds on both sides.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -921,6 +948,11 @@ def _kitti_loop_phase(dev, card: str) -> dict:
     A, B = entry.map_to_numpy(card_m), entry.map_to_numpy(cpu_m)
     live = A["kf_valid"]
     pose_gap = float(np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max())
+    # the card against itself from the same inputs (its index adds by
+    # atomics sum in another order on each run): how far rounding alone
+    # moves this correction
+    again_T = lc._correct_loop_device(cam, m0, kf_id, cand, S12, fix).kf_Tcw.cpu().numpy()
+    self_gap = float(np.abs(again_T[live] - A["kf_Tcw"][live]).max())
     links = float((A["kf_pt_idx"][live] == B["kf_pt_idx"][live]).mean())
     pv = A["pt_valid"] & B["pt_valid"]
     pt_gap = np.abs(A["pt_xyz"][pv] - B["pt_xyz"][pv]).max(-1)
@@ -939,7 +971,8 @@ def _kitti_loop_phase(dev, card: str) -> dict:
         prob.pt_valid.cpu()]
     gba_pt_share = float((gba_pt <= CORRECT_PT_ATOL).float().mean())
     print(f"[15c] _correct_loop_device (keyframe {int(kf_id)} to {int(cand)}) card vs CPU from "
-          f"the same inputs: live poses {pose_gap:.2e} (bound {CORRECT_POSE_ATOL:g}), links "
+          f"the same inputs: live poses {pose_gap:.2e} (bound {CORRECT_POSE_ATOL:g}; the card "
+          f"against itself {self_gap:.2e}), links "
           f"{links:.4%} equal (bound {CORRECT_LINKS_MIN:.0%}), points within "
           f"{CORRECT_PT_ATOL:g} on {pt_share:.4%} (bound 99%, largest {pt_gap.max():.2e}); one "
           f"global BA chunk (4 robust LM steps, O={prob.obs_valid.numel()}, "
@@ -975,9 +1008,422 @@ def _kitti_loop_phase(dev, card: str) -> dict:
                ate_end_m=ate_end["rmse"], frame_ms_median=statistics.median(frame_ms),
                frame_ms_mean=statistics.mean(frame_ms), loop_frames=loop_frames,
                launches_per_frame=counts, launches=launches,
-               correct_vs_cpu={"pose_gap": pose_gap, "links": links, "pt_share": pt_share},
+               correct_vs_cpu={"pose_gap": pose_gap, "links": links, "pt_share": pt_share,
+                               "card_self_gap": self_gap},
                gba_chunk_vs_cpu={"pose_gap": gba_gap, "pt_share": gba_pt_share})
     return out
+
+
+# [16b]: the last joint problem of the JAX package's multi-sequence run
+# (runs/multi_seq/run.log: 271 cameras, 53,871 points, 221,108 valid
+# observations), as `synthetic_ba_problem`, at --joint-ba-iters 8
+DIST_BA_SIZE = (271, 53871, 5)
+DIST_BA_ITERS = 8
+DIST_BA_SHARDS_ATOL = 5e-4  # 8 shards vs 1 (tests/test_dist_ba.py:47)
+DIST_BA_CPU_ATOL = 1e-3  # card vs CPU: float32 index adds in another order
+DIST_BA_COLLECTIVES = 15  # per LM iteration at cg_iters 12
+# [16c]: three KITTI sequences round-robin, a joint BA every 45 frames
+# summed (2 joint BAs and the final one)
+MULTI_SEQ_SEEDS = (0, 1, 2)
+MULTI_SEQ_FRAMES = 30
+MULTI_SEQ_EVERY = 45
+MULTI_SEQ_MAX_CAMS = 256
+MULTI_SEQ_ATE = 0.05  # the bound of [12]
+# the final joint BA per sequence against the sequence's solo solve: the
+# reduced camera system is block-diagonal, but the joint LM shares one
+# damping and one accept over the summed cost, and 12 CG iterations on
+# the joint system (shared step sizes) are not each block's own CG
+# (1.6e-3 in a CPU rehearsal of the port)
+BLOCK_DIAG_ATOL = 5e-3
+JOINT_CPU_ATOL = 1e-3
+# a joint BA that follows no tracked frame (the final polish after the
+# second joint BA at frame 90) starts from a converged state, and its
+# first LM step is accepted whatever its cost (the carry starts at inf,
+# as in the JAX program): its cost may rise, by at most this share
+POLISH_COST_RTOL = 1e-4
+
+
+def _dryrun_phase(dev) -> dict:
+    """[16a]: entry.dryrun_multichip on a 1-shard mesh on the card."""
+    from orb_slam2_test_tpu_torch import entry
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(1, dev)
+    launches = _launch_counts()
+    print(f"[16a] dryrun_multichip(1): cost {out['cost']:.3f}, descriptors "
+          f"{tuple(out['descs'].shape)}, launches {launches}, {time.perf_counter() - t0:.1f} s")
+    _check(np.isfinite(out["cost"]), f"[16a] cost {out['cost']}")
+    _check(launches["patch_gather"] >= 1, f"[16a] launches {launches}")
+    return {"cost": out["cost"], "launches": launches}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _dist_ba_phase(dev, card: str) -> dict:
+    """[16b]: dist_bundle_adjust at the size of the JAX multi-sequence
+    run's last joint problem: 1 shard, 8 shards, a 1-rank NCCL group,
+    the CPU port, no host sync, measure_scaling_problem."""
+    import torch
+    import torch.distributed as dist
+
+    from orb_slam2_test_tpu_torch.parallel import dist_ba, multihost
+    from orb_slam2_test_tpu_torch.parallel.multi_map import measure_scaling_problem
+    from orb_slam2_test_tpu_torch.solvers.ba_core import BAProblem
+    from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+    prob, cam = synthetic_ba_problem(*DIST_BA_SIZE, seed=0, device=dev)
+    n_obs = int(prob.obs_valid.sum())
+    print(f"[16b] distributed BA: {DIST_BA_SIZE[0]} cameras, {DIST_BA_SIZE[1]} points, "
+          f"{prob.obs_valid.numel()} observation slots, {n_obs} valid (the JAX run's last "
+          f"joint problem: 271 / 53,871 / 221,108), {DIST_BA_ITERS} LM iterations")
+    shard = {n: dist_ba.shard_problem(prob, n) for n in (1, 8)}
+
+    def run(sprob, mesh):
+        dist_ba.PSUM.calls = 0
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = dist_ba.dist_bundle_adjust(sprob, cam, mesh, iters=DIST_BA_ITERS)
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end), dist_ba.PSUM.calls / DIST_BA_ITERS
+
+    runs = {}
+    for n in (1, 8):
+        mesh = dist_ba.make_ba_mesh(n, dev)
+        run(shard[n], mesh)  # warm-up
+        runs[n] = run(shard[n], mesh)
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    det = {}
+    try:
+        mesh = dist_ba.make_ba_mesh(None, dev)
+        _check(mesh.distributed and mesh.size == 1, f"[16b] NCCL mesh {mesh}")
+        mine = multihost.make_global_problem(shard[1], mesh)
+        run(mine, mesh)  # warm-up: the communicator
+        runs["nccl"] = run(mine, mesh)
+        # the comparisons run with deterministic index adds (warn_only:
+        # cuBLAS warns without CUBLAS_WORKSPACE_CONFIG, and its results
+        # on one stream repeat); by atomics two runs of one shard differ
+        # by ~3e-4, which would hide what sharding changes
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            det["nccl"] = run(mine, mesh)[0]
+            dist.destroy_process_group()
+            for n in (1, 8):
+                det[n] = run(shard[n], dist_ba.make_ba_mesh(n, dev))[0]
+        finally:
+            torch.use_deterministic_algorithms(False)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+    cpu_prob = BAProblem(*[x.cpu() for x in shard[1]])
+    t0 = time.perf_counter()
+    cpu = dist_ba.dist_bundle_adjust(cpu_prob, cam, dist_ba.make_ba_mesh(1, "cpu"),
+                                     iters=DIST_BA_ITERS)
+    cpu_s = time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for n in (1, 8):
+            again = dist_ba.dist_bundle_adjust(shard[n], cam, dist_ba.make_ba_mesh(n, dev),
+                                               iters=DIST_BA_ITERS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _check(bool(torch.isfinite(again[0]).all()), "[16b] the no-sync rerun is not finite")
+
+    T1 = runs[1][0][0]
+    gaps = {
+        "8_vs_1_shard": float((det[8][0] - det[1][0]).abs().max()),
+        "8_vs_1_shard_atomics": float((runs[8][0][0] - T1).abs().max()),
+        "nccl_vs_1_shard_atomics": float((runs["nccl"][0][0] - T1).abs().max()),
+        "card_vs_cpu": float((T1.cpu() - cpu[0]).abs().max()),
+    }
+    det_equal = all(torch.equal(a, b) for a, b in zip(det["nccl"], det[1]))
+    out = {"cameras": DIST_BA_SIZE[0], "points": DIST_BA_SIZE[1], "valid_observations": n_obs,
+           "iters": DIST_BA_ITERS, "gaps": gaps, "nccl_equal_deterministic": det_equal,
+           "cpu_s": cpu_s}
+    for key, (res, ms, per_iter) in runs.items():
+        name = f"{key} shard{'s' if key == 8 else ''}" if key != "nccl" else "1-rank NCCL"
+        print(f"[16b] {name}: {ms:.1f} ms, {ms / DIST_BA_ITERS:.2f} ms per LM iteration on CUDA "
+              f"events, cost {float(res[2]):.1f}, {per_iter:g} collectives per LM iteration "
+              f"({card})")
+        out[f"ms_{key}"] = ms
+        out[f"ms_per_lm_iter_{key}"] = ms / DIST_BA_ITERS
+        out[f"collectives_per_lm_iter_{key}"] = per_iter
+        _check(per_iter == DIST_BA_COLLECTIVES, f"[16b] {name}: {per_iter} collectives")
+        _check(np.isfinite(float(res[2])), f"[16b] {name}: cost {float(res[2])}")
+    print(f"[16b] poses, deterministic index adds: 8 shards vs 1 {gaps['8_vs_1_shard']:.2e} "
+          f"(bound {DIST_BA_SHARDS_ATOL:g}), 1-rank NCCL equal to 1 shard: {det_equal}; by "
+          f"atomics: 8 vs 1 {gaps['8_vs_1_shard_atomics']:.2e}, NCCL vs 1 "
+          f"{gaps['nccl_vs_1_shard_atomics']:.2e}; card vs CPU port "
+          f"{gaps['card_vs_cpu']:.2e} (bound {DIST_BA_CPU_ATOL:g}; the CPU took {cpu_s:.1f} s); "
+          f"1 and 8 shards again under set_sync_debug_mode('error'): no host sync")
+    _check(gaps["8_vs_1_shard"] <= DIST_BA_SHARDS_ATOL, f"[16b] 8 vs 1 shard {gaps}")
+    _check(det_equal, "[16b] the 1-rank NCCL run differs from the one-process run")
+    _check(gaps["card_vs_cpu"] <= DIST_BA_CPU_ATOL, f"[16b] card vs CPU {gaps}")
+
+    t0 = time.perf_counter()
+    scaling = measure_scaling_problem(prob, cam, iters=DIST_BA_ITERS, device_counts=[1, 2, 4, 8])
+    print(f"[16b] measure_scaling_problem ({time.perf_counter() - t0:.1f} s, {card}): "
+          + json.dumps(scaling))
+    out["scaling"] = scaling
+    return out
+
+
+def _merged_cost(maps, cams, max_cams, sfs) -> float:
+    """The robust cost of the joint problem that joint_bundle_adjust
+    builds from these maps, before it moves anything."""
+    from orb_slam2_test_tpu_torch.parallel import dist_ba, multi_map
+
+    _, _, merged = multi_map._merged(maps, cams, max_cams, sfs)
+    shards, pts = dist_ba._shards(merged.prob, merged.cam, 1)
+    return float(dist_ba._local_cost(shards[0], merged.prob.cam_Tcw, pts[0]))
+
+
+def _multi_seq_phase(dev, card: str, tmp: str) -> dict:
+    """[16c]: three KITTI sequences round-robin through cli.run_multi_seq
+    with joint BAs; returns the numbers and the final joint BA's inputs."""
+    import argparse
+
+    import torch
+
+    from orb_slam2_test_tpu_torch import cli, entry
+    from orb_slam2_test_tpu_torch.io.datasets import MemorySequence
+    from orb_slam2_test_tpu_torch.parallel import dist_ba, multi_map
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState
+
+    t0 = time.perf_counter()
+    seqs = entry.kitti_multi_sequence(MULTI_SEQ_SEEDS, MULTI_SEQ_FRAMES, dev)
+    systems = [entry.kitti_system(dev) for _ in seqs]
+    render_s = time.perf_counter() - t0
+    cfg = systems[0].tracker.cfg
+    print(f"[16c] {len(seqs)} KITTI stereo sequences (seeds {MULTI_SEQ_SEEDS}), "
+          f"{MULTI_SEQ_FRAMES} frames each, {entry.KITTI_CAM.width}x{entry.KITTI_CAM.height}, "
+          f"{cfg.n_features} features, K={cfg.max_keyframes} P={cfg.max_points}, "
+          f"async_backend={cfg.async_backend}; a joint BA every {MULTI_SEQ_EVERY} frames summed "
+          f"and a final one ({render_s:.1f} s to build)")
+    per_frame = [[] for _ in systems]
+    events = [[] for _ in systems]  # read after the run: no sync per frame
+    for i, s in enumerate(systems):
+        def counted(left, right, t, _track=s.track_stereo, _i=i):
+            c0 = _launch_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            pose = _track(left, right, t)
+            end.record()
+            events[_i].append((start, end))
+            c1 = _launch_counts()
+            per_frame[_i].append((c1["patch_gather"] - c0["patch_gather"],
+                                  c1["pose_opt"] - c0["pose_opt"]))
+            return pose
+        s.track_stereo = counted
+    joint_bas = []
+    joint = cli.joint_bundle_adjust
+
+    def captured(maps, cams, mesh, **kw):
+        before = _merged_cost(maps, cams, kw["max_cams"], kw["scale_factor"])
+        new, info = joint(maps, cams, mesh, **kw)
+        joint_bas.append({"maps": [MapState(*[x.clone() for x in m]) for m in maps],
+                          "cams": list(cams), "kw": kw, "new": new, "info": info,
+                          "cost_before": before, "frames": sum(len(p) for p in per_frame)})
+        return new, info
+
+    args = argparse.Namespace(devices=None, device=dev, max_frames=None,
+                              joint_ba_every=MULTI_SEQ_EVERY, joint_ba_iters=DIST_BA_ITERS,
+                              max_cams=MULTI_SEQ_MAX_CAMS, kitti_traj=False,
+                              traj_prefix=os.path.join(tmp, "CameraTrajectory"))
+    mem = [MemorySequence("stereo", list(seq.frames)) for seq in seqs]
+    cli.joint_bundle_adjust = captured
+    _zero_launches()
+    try:
+        summary = cli.run_multi_seq(systems, mem, args)
+    finally:
+        cli.joint_bundle_adjust = joint
+    launches = _launch_counts()
+    frame_ms = [[a.elapsed_time(b) for a, b in ev] for ev in events]
+
+    out = {"sequences": len(seqs), "frames_each": MULTI_SEQ_FRAMES, "fps": summary["fps"],
+           "wall_s": summary["wall_s"], "launches": launches, "joint_ba": [],
+           "median_track_wall_ms": [m * 1e3 for m in summary["median_s"]],
+           "median_track_ms": [statistics.median(x) for x in frame_ms]}
+    for k, jb in enumerate(joint_bas):
+        info = jb["info"]
+        polish = k > 0 and jb["frames"] == joint_bas[k - 1]["frames"]
+        row = {"cams": info["n_cams"], "pts": info["n_pts"], "obs": info["n_obs"],
+               "after_frames": jb["frames"], "cost_before": jb["cost_before"],
+               "cost": info["cost"], "solve_ms": info["solve_s"] * 1e3}
+        out["joint_ba"].append(row)
+        note = " (no frame since the last)" if polish else ""
+        print(f"[16c] joint BA {k} after {jb['frames']} frames{note}: cams {row['cams']}, pts "
+              f"{row['pts']}, obs {row['obs']}, cost {row['cost_before']!r} -> {row['cost']!r}, "
+              f"solve {row['solve_ms']:.1f} ms "
+              f"(host clock, device synchronized; {card})")
+        if polish:
+            _check(row["cost"] <= row["cost_before"] * (1 + POLISH_COST_RTOL),
+                   f"[16c] joint BA {k} raised the converged cost beyond {POLISH_COST_RTOL:g}")
+        else:
+            _check(row["cost"] < row["cost_before"], f"[16c] joint BA {k} did not lower the cost")
+    _check(len(joint_bas) == 3, f"[16c] {len(joint_bas)} joint BAs, expected 2 and the final")
+    ates = []
+    for i, (s, seq) in enumerate(zip(systems, seqs)):
+        stats = s.tracker.stats
+        ate = _ate(s.tracker.export_trajectory(), seq.T_true)
+        ates.append(ate["rmse"])
+        print(f"[16c] seq {i}: {stats['n_kf']} keyframes, {stats['lost_frames']} lost, ATE "
+              f"{ate['rmse']:.4e} m over {ate['n_pairs']} frames, track_stereo median "
+              f"{out['median_track_ms'][i]:.1f} ms on CUDA events "
+              f"({out['median_track_wall_ms'][i]:.1f} ms host wall), launches per frame "
+              f"{sorted(set(per_frame[i]))}")
+        _check(stats["lost_frames"] == 0, f"[16c] seq {i}: {stats}")
+        _check(per_frame[i][0] == (3, 0) and all(pf == (3, 2) for pf in per_frame[i][1:]),
+               f"[16c] seq {i} launches per frame {per_frame[i]}")
+        _check(ate["n_pairs"] == MULTI_SEQ_FRAMES and ate["rmse"] <= MULTI_SEQ_ATE,
+               f"[16c] seq {i} ATE {ate}")
+    out["ate_m"] = ates
+    print(f"[16c] {sum(len(p) for p in per_frame)} frames in {summary['wall_s']:.1f} s: "
+          f"{summary['fps']:.2f} fps aggregate (host wall, the joint BAs included); launches "
+          f"{launches} ({card})")
+
+    # block-diagonal exactness and the CPU port, from the final joint BA's inputs
+    final = joint_bas[-1]
+    maps, cams, kw = final["maps"], final["cams"], final["kw"]
+    sfs = kw["scale_factor"]
+    block_gap = 0.0
+    for i, m in enumerate(maps):
+        part = multi_map.compact_problem(m, scale_factor=sfs[i], max_cams=kw["max_cams"])
+        Tcw, _, _ = dist_ba.dist_bundle_adjust(dist_ba.shard_problem(part.prob, 1), cams[i],
+                                               dist_ba.make_ba_mesh(1, dev), iters=kw["iters"])
+        joint_T = final["new"][i].kf_Tcw[torch.from_numpy(part.kf_ids).to(dev)]
+        block_gap = max(block_gap, float((joint_T - Tcw).abs().max()))
+    cpu_maps = [MapState(*[x.cpu() for x in m]) for m in maps]
+    cpu_new, cpu_info = multi_map.joint_bundle_adjust(
+        cpu_maps, cams, dist_ba.make_ba_mesh(1, "cpu"), iters=kw["iters"],
+        max_cams=kw["max_cams"], scale_factor=sfs)
+    cpu_gap = max(float((a.kf_Tcw.cpu() - b.kf_Tcw)[b.kf_valid].abs().max())
+                  for a, b in zip(final["new"], cpu_new))
+    print(f"[16c] the final joint BA per sequence vs its solo dist_bundle_adjust: poses within "
+          f"{block_gap:.2e} (bound {BLOCK_DIAG_ATOL:g}); again on the CPU port from the same "
+          f"maps: poses within {cpu_gap:.2e} (bound {JOINT_CPU_ATOL:g}), cost "
+          f"{cpu_info['cost']:.1f} vs {final['info']['cost']:.1f}")
+    _check(block_gap <= BLOCK_DIAG_ATOL, f"[16c] block-diagonal gap {block_gap}")
+    _check(cpu_gap <= JOINT_CPU_ATOL, f"[16c] card vs CPU joint BA {cpu_gap}")
+    out.update(block_diag_gap=block_gap, cpu_gap=cpu_gap)
+    return out, final
+
+
+def _joint_ba_rank(argv: list) -> int:
+    """[16d]'s worker, `chip_smoke.py --joint-ba-rank RANK WORLD PORT DIR`:
+    this rank of a gloo group on the card runs the joint BA of the maps
+    saved in DIR; rank 0 writes the result there."""
+    import torch
+    import torch.distributed as dist
+
+    from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_test_tpu_torch.io.checkpoint import load_map
+    from orb_slam2_test_tpu_torch.parallel import dist_ba
+    from orb_slam2_test_tpu_torch.parallel.multi_map import joint_bundle_adjust
+
+    rank, world, port, d = int(argv[0]), int(argv[1]), int(argv[2]), argv[3]
+    with open(os.path.join(d, "joint.json")) as f:
+        spec = json.load(f)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=world,
+                            rank=rank)
+    try:
+        mesh = dist_ba.make_ba_mesh(None, "cuda")
+        maps = [load_map(os.path.join(d, f"map{i}.npz"), mesh.device)[0]
+                for i in range(spec["n"])]
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        new, info = joint_bundle_adjust(maps, [PinholeCamera(**c) for c in spec["cams"]], mesh,
+                                        iters=spec["iters"], max_cams=spec["max_cams"],
+                                        scale_factor=spec["scale_factor"])
+        if rank == 0:
+            np.savez(os.path.join(d, "ranks.npz"), cost=info["cost"], size=mesh.size,
+                     **{f"kf_Tcw{i}": m.kf_Tcw.cpu().numpy() for i, m in enumerate(new)},
+                     **{f"pt_xyz{i}": m.pt_xyz.cpu().numpy() for i, m in enumerate(new)})
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def _two_ranks_phase(final: dict, tmp: str, card: str) -> dict:
+    """[16d]: two gloo ranks on the one card against the 2-shard
+    one-process run of the final joint BA."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.io.checkpoint import save_map
+    from orb_slam2_test_tpu_torch.parallel import dist_ba
+    from orb_slam2_test_tpu_torch.parallel.multi_map import joint_bundle_adjust
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapCapacity
+
+    maps, cams, kw = final["maps"], final["cams"], final["kw"]
+    for i, m in enumerate(maps):
+        cap = MapCapacity(max_keyframes=m.kf_valid.shape[0], max_features=m.kf_uv.shape[1],
+                          max_points=m.pt_valid.shape[0])
+        save_map(os.path.join(tmp, f"map{i}.npz"), m, cap)
+    with open(os.path.join(tmp, "joint.json"), "w") as f:
+        json.dump({"n": len(maps), "cams": [c._asdict() for c in cams], "iters": kw["iters"],
+                   "max_cams": kw["max_cams"], "scale_factor": kw["scale_factor"]}, f)
+    port = _free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--joint-ba-rank",
+                               str(r), "2", str(port), tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(2)]
+    results = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=600)
+            results.append((p.returncode, so.decode(), se.decode()))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks_s = time.perf_counter() - t0
+    for rc, so, se in results:
+        _check(rc == 0, f"[16d] a rank failed ({rc}):\n{so[-2000:]}\n{se[-4000:]}")
+    got = np.load(os.path.join(tmp, "ranks.npz"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one, info = joint_bundle_adjust(maps, cams, dist_ba.make_ba_mesh(2, maps[0].kf_Tcw.device),
+                                        **kw)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    equal = all(np.array_equal(got[f"kf_Tcw{i}"], m.kf_Tcw.cpu().numpy())
+                and np.array_equal(got[f"pt_xyz{i}"], m.pt_xyz.cpu().numpy())
+                for i, m in enumerate(one))
+    gap = max(float(np.abs(got[f"kf_Tcw{i}"] - m.kf_Tcw.cpu().numpy()).max())
+              for i, m in enumerate(one))
+    print(f"[16d] two gloo ranks on the one card ({int(got['size'])} shards): cost "
+          f"{float(got['cost']):.1f} vs {info['cost']:.1f} for 2 shards in one process; "
+          f"poses and points equal: {equal} (largest pose gap {gap:.2e}); both ranks took "
+          f"{ranks_s:.1f} s with their start-up ({card})")
+    _check(int(got["size"]) == 2, "[16d] the ranks' mesh is not 2 shards")
+    _check(equal, f"[16d] the two ranks differ from the one-process run by {gap}")
+    return {"equal": equal, "pose_gap": gap, "ranks_s": ranks_s, "cost": float(got["cost"])}
+
+
+def _parallel_phase(dev, card: str) -> dict:
+    """[16a]-[16d]."""
+    import tempfile
+
+    dry = _dryrun_phase(dev)
+    dba = _dist_ba_phase(dev, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        multi, final = _multi_seq_phase(dev, card, tmp)
+        ranks = _two_ranks_phase(final, tmp, card)
+    return {"dryrun": dry, "dist_ba": dba, "multi_seq": multi, "two_ranks": ranks}
 
 
 def _bins(angle: np.ndarray) -> np.ndarray:
@@ -1583,8 +2029,11 @@ def main() -> int:
     reloc_stats = _relocalization_phase(dev, card)
     oab_stats = _out_and_back_phase(dev, card)
     loop_stats = _kitti_loop_phase(dev, card)
+    print(f"[15] phases 1-15 took {time.perf_counter() - t_run:.1f} s, the kernels' build "
+          "included")
+    par = _parallel_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[15] phases 1-15 took {run_s:.1f} s, the kernels' build included")
+    print(f"[16] phases 1-16 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -1615,7 +2064,9 @@ def main() -> int:
                              "tum_mono_sequence": mono_stats["launches"],
                              "kitti_relocalization": reloc_stats["launches"],
                              "out_and_back": oab_stats["launches"],
-                             "kitti_loop": loop_stats["launches"]},
+                             "kitti_loop": loop_stats["launches"],
+                             "dryrun_multichip": par["dryrun"]["launches"],
+                             "kitti_multi_seq": par["multi_seq"]["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -1632,6 +2083,9 @@ def main() -> int:
         "kitti_relocalization": {k: v for k, v in reloc_stats.items() if k != "launches"},
         "out_and_back": {k: v for k, v in oab_stats.items() if k != "launches"},
         "kitti_loop": {k: v for k, v in loop_stats.items() if k != "launches"},
+        "dist_ba": par["dist_ba"],
+        "kitti_multi_seq": {k: v for k, v in par["multi_seq"].items() if k != "launches"},
+        "two_ranks": par["two_ranks"],
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,
@@ -1645,4 +2099,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--joint-ba-rank"]:
+        sys.exit(_joint_ba_rank(sys.argv[2:]))
     sys.exit(main())

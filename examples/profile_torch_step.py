@@ -1,7 +1,7 @@
 """Where the time of the PyTorch port's tracking step goes, on one GPU.
 
     python3 examples/profile_torch_step.py
-        [--path mono|kitti-stereo|kitti-insert|kitti-sequence|kitti-loop]
+        [--path mono|kitti-stereo|kitti-insert|kitti-sequence|kitti-loop|dist-ba]
         [--steps 10] [--out runs/profile_torch_step]
 
 Runs one of the port's entry points under torch.profiler after a
@@ -24,7 +24,12 @@ warm-up:
   BA chunk (`bundle_adjust_partial`, 4 robust LM steps) at the KITTI
   capacities (K = 384, N = 2000, P = 131072) on
   `entry.synthetic_loop_map` (22 live keyframes, keyframe 21 closing
-  on keyframe 1), each profiled on its own.
+  on keyframe 1), each profiled on its own;
+- dist-ba: `parallel.dist_bundle_adjust` on one shard, 8 LM iterations
+  (`--joint-ba-iters 8`) of the KITTI-shaped synthetic problem at the
+  size of the JAX package's last multi-sequence joint problem (271
+  cameras, 53,871 points, 5 observations each); also reports the
+  launches per LM iteration.
 It reports per step: host wall time, device busy time (the union of the
 kernels' intervals), the device's idle share, the number of kernel
 launches, and the kernels and operators with the most device time.
@@ -45,6 +50,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import torch
+
+
+DIST_BA_ITERS = 8
 
 
 def _busy_us(intervals: list[tuple[float, float]]) -> float:
@@ -107,7 +115,7 @@ def profile_steps(step, steps: int, card: str) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--path", choices=["mono", "kitti-stereo", "kitti-insert", "kitti-sequence",
-                                       "kitti-loop"],
+                                       "kitti-loop", "dist-ba"],
                     default="mono")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--out", default="runs/profile_torch_step")
@@ -167,6 +175,15 @@ def main() -> int:
         steps["correction"] = lambda: lc._correct_loop_device(cam, m, kf, cand, S12, True)
         steps["gba-chunk"] = lambda: ba_core.bundle_adjust_partial(prob, cam, lam, cost0,
                                                                    active, iters=4)
+    elif args.path == "dist-ba":
+        from orb_slam2_test_tpu_torch.parallel import dist_ba
+        from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+        prob, cam = synthetic_ba_problem(271, 53871, 5, seed=0, device=dev)
+        sprob = dist_ba.shard_problem(prob, 1)
+        mesh = dist_ba.make_ba_mesh(1, dev)
+        steps["dist-ba"] = lambda: dist_ba.dist_bundle_adjust(sprob, cam, mesh,
+                                                              iters=DIST_BA_ITERS)
     else:
         cam, cfg = entry.KITTI_CAM, entry.KITTI_CFG
         m = entry.map_from_numpy(entry.bench_map(cfg, entry.KITTI_N_KF, entry.KITTI_N_PT), dev)
@@ -185,6 +202,9 @@ def main() -> int:
     summary = {"path": args.path}
     for name, step in steps.items():
         summary[name] = profile_steps(step, args.steps, card)
+        if name == "dist-ba":
+            summary[name]["kernel_launches_per_lm_iteration"] = (
+                summary[name]["kernel_launches_per_step"] / DIST_BA_ITERS)
         print(name, json.dumps({k: v for k, v in summary[name].items()
                                 if k != "top_device_time"}))
         for row in summary[name]["top_device_time"]:

@@ -4,7 +4,13 @@
 
 DATASET is one of mono_tum, mono_kitti, mono_euroc, stereo_kitti,
 stereo_euroc, rgbd_tum (the reference's Examples/* mains and the JAX
-package's examples/*.py). The loop loads each frame, tracks it through
+package's examples/*.py). Two more subcommands port the JAX package's
+parallel examples: `multi_seq` (examples/multi_seq.py: several
+sequences tracked round-robin by their own Systems, with a joint
+distributed BA over their maps every --joint-ba-every frames and at
+the end) and `dist_ba_scaling` (examples/dist_ba_scaling.py: the
+distributed BA's strong scaling on map checkpoints or a synthetic
+problem). The loop loads each frame, tracks it through
 `System.track_*`, prints timing and counts at the end, saves the
 trajectories and, with --groundtruth, prints the ATE. `run(system, seq,
 args)` is the loop itself, so a `Sequence` built in memory
@@ -31,6 +37,12 @@ from concurrent.futures import ThreadPoolExecutor
 from orb_slam2_test_tpu_torch.evaluation import absolute_trajectory_error
 from orb_slam2_test_tpu_torch.io import datasets
 from orb_slam2_test_tpu_torch.io.trajectory import load_trajectory_tum
+from orb_slam2_test_tpu_torch.parallel.dist_ba import make_ba_mesh
+from orb_slam2_test_tpu_torch.parallel.multi_map import (
+    joint_bundle_adjust,
+    measure_scaling,
+    measure_scaling_problem,
+)
 from orb_slam2_test_tpu_torch.system import MONOCULAR, RGBD, STEREO, System
 
 DATASETS = {
@@ -192,21 +204,225 @@ def load_sequence(dataset: str, args, system: System) -> datasets.Sequence:
     return seq
 
 
+# multi_seq's (--dataset, --sensor) -> the dataset subcommand whose loader reads it
+MULTI_SEQ_DATASETS = {
+    ("kitti", MONOCULAR): "mono_kitti", ("kitti", STEREO): "stereo_kitti",
+    ("tum", MONOCULAR): "mono_tum", ("tum", RGBD): "rgbd_tum",
+    ("euroc", MONOCULAR): "mono_euroc", ("euroc", STEREO): "stereo_euroc",
+}
+
+
+def add_multi_seq_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    p.add_argument("--seq", action="append", required=True, metavar="SETTINGS:DIR",
+                   help="settings YAML and sequence directory, colon-separated; repeatable")
+    p.add_argument("--dataset", default="kitti", choices=["kitti", "tum", "euroc"])
+    p.add_argument("--sensor", default=STEREO, choices=[MONOCULAR, STEREO, RGBD])
+    p.add_argument("--vocabulary", default="default")
+    p.add_argument("--no-vocabulary", dest="vocabulary", action="store_const", const=None)
+    p.add_argument("--joint-ba-every", type=int, default=200,
+                   help="frames (summed over sequences) between joint BAs")
+    p.add_argument("--joint-ba-iters", type=int, default=8)
+    p.add_argument("--max-cams", type=int, default=256,
+                   help="newest keyframes kept free per sequence in the joint BA")
+    p.add_argument("--max-frames", type=int, default=None, help="per-sequence frame cap")
+    p.add_argument("--devices", type=int, default=None,
+                   help="BA mesh size: shards in one process (default 1), or the "
+                        "process count with --multihost")
+    p.add_argument("--traj-prefix", default="CameraTrajectory")
+    p.add_argument("--kitti-traj", action="store_true")
+    p.add_argument("--measure-scaling", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process run: initialize torch.distributed from "
+                        "SLAM_COORDINATOR / SLAM_NUM_PROCS / SLAM_PROC_ID and put "
+                        "the joint BA on the mesh of every rank")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the engine (default cuda; cpu runs on the CPU)")
+    return p
+
+
+def run_multi_seq(systems: list, seqs: list, args, log=print) -> dict:
+    """Track the sequences round-robin, one frame of each live sequence
+    per cycle (the multi-map form of the reference's per-frame loop),
+    with a joint BA over every map after each args.joint_ba_every frames
+    summed over the sequences and a final one, then save each
+    trajectory as <args.traj_prefix>_<i>.txt. Before a joint BA a
+    System's pending global BA (a loop's) runs to its end: its apply
+    would otherwise write its snapshot's poses over the joint BA's.
+    After it each moved System's velocity and cached reference pose are
+    dropped. Returns the summary: frames, wall seconds, aggregate fps,
+    the joint BAs' infos and each sequence's median track seconds and
+    state."""
+    mesh = make_ba_mesh(args.devices, args.device)
+    log(f"[multi_seq] {len(systems)} sequences, mesh of {mesh.size} device(s)")
+    lengths = [len(s) if args.max_frames is None else min(len(s), args.max_frames)
+               for s in seqs]
+    cursors = [0] * len(seqs)
+    since_ba = 0
+    ba_infos = []
+
+    def run_joint_ba():
+        nonlocal since_ba
+        for s in systems:
+            lc = s.tracker.loop_closer
+            if lc is not None and lc.gba_running():
+                s.tracker.drain_backend()
+        new_maps, info = joint_bundle_adjust(
+            [s.tracker.map for s in systems], [s.tracker.cam for s in systems], mesh,
+            iters=args.joint_ba_iters, max_cams=args.max_cams,
+            scale_factor=[s.tracker.cfg.scale_factor for s in systems])
+        for s, m in zip(systems, new_maps):
+            if m is s.tracker.map:
+                continue  # too small: untouched
+            s.tracker.map = m
+            # the BA moved keyframes and points under the tracker: the
+            # constant-velocity prior and the cached reference pose are
+            # stale (as after a loop correction)
+            s.tracker.velocity = None
+            s.tracker._ref_Tcw_host = None
+        ba_infos.append(info)
+        since_ba = 0
+        if info["n_cams"]:
+            log(f"[joint BA] cams={info['n_cams']} pts={info['n_pts']} obs={info['n_obs']} "
+                f"cost={info['cost']:.1f} solve={info['solve_s'] * 1e3:.0f}ms "
+                f"devices={info['n_devices']}")
+
+    t_start = time.perf_counter()
+    while any(c < n for c, n in zip(cursors, lengths)):
+        for i, (system, seq) in enumerate(zip(systems, seqs)):
+            if cursors[i] >= lengths[i]:
+                continue
+            data = seq.load(seq.items[cursors[i]])
+            if system.sensor == STEREO:
+                system.track_stereo(data[1], data[2], data[0])
+            elif system.sensor == RGBD:
+                system.track_rgbd(data[1], data[2], data[0])
+            else:
+                system.track_monocular(data[1], data[0])
+            cursors[i] += 1
+            since_ba += 1
+        if since_ba >= args.joint_ba_every:
+            run_joint_ba()
+    run_joint_ba()  # the final polish over the complete maps
+    wall = time.perf_counter() - t_start
+
+    total = sum(lengths)
+    log(f"[multi_seq] {total} frames total in {wall:.1f}s "
+        f"({total / max(wall, 1e-9):.1f} fps aggregate)")
+    medians, states = [], []
+    for i, s in enumerate(systems):
+        median = s.timing_stats().get("median_s", 0.0)
+        medians.append(median)
+        states.append(s.tracking_state)
+        log(f"  seq {i}: median track {median * 1e3:.1f}ms state={s.tracking_state}")
+        path = f"{args.traj_prefix}_{i}.txt"
+        if args.kitti_traj:
+            s.save_trajectory_kitti(path)
+        else:
+            s.save_trajectory_tum(path)
+        s.shutdown()
+    return {"frames": total, "wall_s": wall, "fps": total / max(wall, 1e-9),
+            "joint_ba": ba_infos, "median_s": medians, "states": states}
+
+
+def multi_seq_main(args) -> int:
+    if args.multihost:
+        from orb_slam2_test_tpu_torch.parallel.multihost import initialize_from_env
+
+        initialize_from_env(device=args.device)
+    dataset = MULTI_SEQ_DATASETS.get((args.dataset, args.sensor))
+    if dataset is None:
+        raise SystemExit(f"no {args.sensor} sequences in the {args.dataset} layout")
+    systems, seqs = [], []
+    for spec in args.seq:
+        settings, _, seq_dir = spec.rpartition(":")
+        if not settings:
+            raise SystemExit(f"--seq must be SETTINGS:DIR, got {spec!r}")
+        system = System(settings, args.sensor, vocabulary=args.vocabulary, device=args.device)
+        seq_args = argparse.Namespace(sequence=seq_dir, associations=None, timestamps=None)
+        systems.append(system)
+        seqs.append(load_sequence(dataset, seq_args, system))
+    summary = run_multi_seq(systems, seqs, args)
+    if args.measure_scaling and summary["joint_ba"][-1]["n_cams"]:
+        report = measure_scaling(
+            [s.tracker.map for s in systems], [s.tracker.cam for s in systems],
+            iters=args.joint_ba_iters, max_cams=args.max_cams,
+            scale_factor=[s.tracker.cfg.scale_factor for s in systems])
+        print(json.dumps(report))
+    return 0
+
+
+def dist_ba_scaling_main(args) -> int:
+    """The distributed BA's strong scaling (`measure_scaling`) on map
+    checkpoints (the port's or the JAX package's npz; one repeated
+    stands for several maps) or on `utils.synthetic.synthetic_ba_problem`
+    of C cameras, P points and O observations per point."""
+    from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_test_tpu_torch.io.checkpoint import load_map
+    from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+    if args.synthetic:
+        n_cams, n_pts, obs_per_pt = args.synthetic
+        prob, cam = synthetic_ba_problem(n_cams, n_pts, obs_per_pt, device=args.device)
+        report = measure_scaling_problem(prob, cam, iters=args.iters, repeats=args.repeats)
+    else:
+        maps, cams, sfs = [], [], []
+        for path in args.checkpoints:
+            m, cap, meta = load_map(path, args.device)
+            maps.append(m)
+            sfs.append(cap.scale_factor)
+            c = meta.get("camera")
+            # a checkpoint without its camera: KITTI 00-02's
+            cams.append(PinholeCamera(**c) if c else PinholeCamera(
+                fx=718.856, fy=718.856, cx=607.19, cy=185.22, width=1241, height=376,
+                bf=718.856 * 0.53716))
+            print(f"  {path}: {int(m.kf_valid.sum())} keyframes, {int(m.pt_valid.sum())} points")
+        report = measure_scaling(maps, cams, iters=args.iters, max_cams=args.max_cams,
+                                 repeats=args.repeats, scale_factor=sfs)
+    print(json.dumps(report, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(report, f, indent=2)
+        print(f"written to {args.out}")
+    return 0
+
+
+def add_dist_ba_scaling_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    src = p.add_mutually_exclusive_group(required=True)
+    src.add_argument("--checkpoints", nargs="+", default=None,
+                     help="map npz files (repeat one to stand for several maps)")
+    src.add_argument("--synthetic", nargs=3, type=int, metavar=("C", "P", "O"), default=None,
+                     help="a synthetic KITTI-shaped problem: cameras, points, "
+                          "observations per point")
+    p.add_argument("--iters", type=int, default=8)
+    p.add_argument("--max-cams", type=int, default=None)
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--out", default=None, help="write the JSON report")
+    p.add_argument("--device", default="cuda",
+                   help="torch device (default cuda; cpu runs on the CPU)")
+    return p
+
+
 def main(argv: list[str] | None = None) -> int:
     p = argparse.ArgumentParser(
         prog="python -m orb_slam2_test_tpu_torch.cli", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
-    sub = p.add_subparsers(dest="dataset", required=True)
+    sub = p.add_subparsers(dest="command", required=True)
     for name in DATASETS:
         sp = add_common_args(sub.add_parser(name))
         if name.endswith("euroc"):
             sp.add_argument("--timestamps", default=None)
         if name == "rgbd_tum":
             sp.add_argument("--associations", default=None)
+    add_multi_seq_args(sub.add_parser("multi_seq"))
+    add_dist_ba_scaling_args(sub.add_parser("dist_ba_scaling"))
     args = p.parse_args(argv)
-    system = System(args.settings, DATASETS[args.dataset], vocabulary=args.vocabulary,
+    if args.command == "multi_seq":
+        return multi_seq_main(args)
+    if args.command == "dist_ba_scaling":
+        return dist_ba_scaling_main(args)
+    system = System(args.settings, DATASETS[args.command], vocabulary=args.vocabulary,
                     device=args.device)
-    seq = load_sequence(args.dataset, args, system)
+    seq = load_sequence(args.command, args, system)
     run(system, seq, args)
     return 0
 

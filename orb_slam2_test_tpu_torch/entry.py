@@ -20,6 +20,9 @@ Entry points:
 - `sequence_step` tracks one stereo frame of a sequence through
   `System.track_stereo`: the host Tracker's whole decision (fused
   program, keyframe decision, insert) on a map it built itself.
+- `dryrun_multichip` is the port of `__graft_entry__.dryrun_multichip`:
+  the distributed BA on a sharded KITTI-scale synthetic problem and a
+  data-parallel ORB frontend (kernel 1), on the BA mesh.
 
 Scenes: `kitti_scene` builds a stereo pair and a map at KITTI capacity
 that the frame really observes; `kitti_insert_scene` three views of four
@@ -27,7 +30,9 @@ planes, 1.07 m apart, for track -> insert -> track -> insert;
 `bench_map` is the bench's random map filling. `map_from_numpy` and
 `map_to_numpy` carry a map between the JAX package's numpy layouts and
 the port's tensors, `frame_from_numpy` a frame and
-`vocabulary_from_numpy` a vocabulary; `state_from_numpy`, `consistent_scene`,
+`vocabulary_from_numpy` a vocabulary, `ba_problem_from_numpy` a bundle
+problem and its camera; `kitti_multi_sequence` gives the concurrent
+multi-sequence path its sequences; `state_from_numpy`, `consistent_scene`,
 `example_scene` and `pose_problem` serve the mono step and kernel 2.
 Every function that puts tensors on a device does so on the card
 (`device="cuda"`) unless the caller asks for another, such as "cpu".
@@ -348,6 +353,26 @@ def map_from_numpy(m, device: torch.device | str = "cuda") -> MapState:
     port's MapState on `device` (descriptors viewed as int32)."""
     get = m.__getitem__ if isinstance(m, dict) else lambda f: getattr(m, f)
     return MapState(*[_to_device(get(f), device) for f in MapState._fields])
+
+
+def ba_problem_from_numpy(prob, cam, device: torch.device | str = "cuda"):
+    """A bundle problem given as the JAX package's `BAProblem` and
+    `PinholeCamera` (numpy or JAX arrays; a camera's fields numbers or
+    per-camera [C] arrays) as the port's (BAProblem on `device`,
+    PinholeCamera whose [C] fields are float32 tensors there)."""
+    from orb_slam2_test_tpu_torch.solvers.ba_core import BAProblem
+
+    def field(f):
+        a = np.asarray(f)
+        if a.ndim == 0:
+            return a.item()
+        return torch.from_numpy(a.astype(np.float32)).to(device)
+
+    cam_d = {k: getattr(cam, k) for k in PinholeCamera._fields}
+    for k in ("fx", "fy", "cx", "cy", "bf"):
+        cam_d[k] = field(cam_d[k])
+    return (BAProblem(*[_to_device(getattr(prob, f), device) for f in BAProblem._fields]),
+            PinholeCamera(**cam_d))
 
 
 def map_to_numpy(m: MapState) -> dict:
@@ -810,6 +835,13 @@ def kitti_sequence(
     return band_sequence(rng, KITTI_CAM, n_frames, device)
 
 
+def kitti_multi_sequence(seeds=(0, 1, 2), n_frames: int = 30,
+                         device: torch.device | str = "cuda") -> list:
+    """One `kitti_sequence` per seed (each seed's own textures), for the
+    concurrent multi-sequence path: a list of BandSequence."""
+    return [kitti_sequence(np.random.default_rng(s), n_frames, device) for s in seeds]
+
+
 def kitti_system(device: torch.device | str = "cuda", vocabulary=None,
                  **overrides) -> System:
     """A stereo System at the bench's KITTI configuration (KITTI_CAM and
@@ -1124,3 +1156,49 @@ def synthetic_loop_map(n_kf: int = 22, K: int = 32, N: int = 200, P: int = 4096,
     m["n_kf"] = np.int32(n_kf)
     m["n_pt"] = np.int32(n_pt)
     return m, T_true
+
+
+# ---------------------------------------------------------------------------
+# The multi-chip path: the distributed BA and a data-parallel frontend
+# ---------------------------------------------------------------------------
+
+
+def dryrun_multichip(n_devices: int = 1, device: torch.device | str = "cuda") -> dict:
+    """The counterpart of `__graft_entry__.dryrun_multichip`: run the
+    multi-chip path on an n-shard mesh (the process group's when
+    `torch.distributed` is initialized).
+
+    1. The distributed BA on the KITTI-scale synthetic problem (256
+       cameras, 32,768 points, 5 observations each), sharded, 2 LM
+       iterations; its cost must be finite.
+    2. A data-parallel frontend: one 96x128 image per shard through
+       `extract_orb` (64 features, 4 levels), which launches kernel 1.
+    Returns {"cost", "descs" [shards held here, 64, 8]}."""
+    from orb_slam2_test_tpu_torch.ops.extractor import extract_orb
+    from orb_slam2_test_tpu_torch.parallel.dist_ba import (
+        dist_bundle_adjust,
+        make_ba_mesh,
+        shard_problem,
+    )
+    from orb_slam2_test_tpu_torch.parallel.multihost import make_global_problem
+    from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+    mesh = make_ba_mesh(n_devices, device)
+    rng = np.random.default_rng(0)
+    prob, cam = synthetic_ba_problem(256, 32768, 5, seed=0, device=mesh.device)
+    sprob = shard_problem(prob, mesh.size)
+    if mesh.distributed:
+        sprob = make_global_problem(sprob, mesh)
+    _, _, cost = dist_bundle_adjust(sprob, cam, mesh, iters=2)
+    cost = float(cost)
+    if not np.isfinite(cost):
+        raise RuntimeError(f"dryrun_multichip: the distributed BA's cost is {cost}")
+
+    imgs = rng.uniform(0, 255, (mesh.size, 96, 128)).astype(np.float32)
+    shards = range(mesh.size) if not mesh.distributed else [mesh.rank]
+    descs = torch.stack([
+        extract_orb(torch.from_numpy(imgs[s]).to(mesh.device), n_features=64, n_levels=4).desc
+        for s in shards])
+    print(f"dryrun_multichip({mesh.size}): dist-BA cost={cost:.3f}, "
+          f"frontend descs={tuple(descs.shape)} OK")
+    return {"cost": cost, "descs": descs}

@@ -42,6 +42,7 @@ from orb_slam2_test_tpu_torch.geometry.robust import (
 )
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp, se3_project
 from orb_slam2_test_tpu_torch.solvers.reprojection import project_residual
+from orb_slam2_test_tpu_torch.utils.scatter import segment_sum
 
 
 class BAProblem(NamedTuple):
@@ -62,11 +63,6 @@ class BAResult(NamedTuple):
     obs_chi2: torch.Tensor  # final per-observation chi2
     obs_inlier: torch.Tensor  # chi2 <= threshold and positive depth
     cost: torch.Tensor  # final robust cost
-
-
-def _sum_into(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """zeros(n, ...) with the rows of v added at idx (repeats accumulate)."""
-    return v.new_zeros((n,) + v.shape[1:]).index_add_(0, idx, v)
 
 
 def _residual(prob: BAProblem, cam: PinholeCamera):
@@ -114,10 +110,10 @@ def _normal_blocks(prob, cam, lam, robust, active):
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
     wr = w[:, None] * res.r
-    Hcc = _sum_into(C, oc, torch.einsum("oki,okj->oij", Jc, wJc))
-    Hpp = _sum_into(Q, op, torch.einsum("oki,okj->oij", Jp, wJp))
-    bc = _sum_into(C, oc, -torch.einsum("oki,ok->oi", Jc, wr))
-    bp = _sum_into(Q, op, -torch.einsum("oki,ok->oi", Jp, wr))
+    Hcc = segment_sum(C, oc, torch.einsum("oki,okj->oij", Jc, wJc))
+    Hpp = segment_sum(Q, op, torch.einsum("oki,okj->oij", Jp, wJp))
+    bc = segment_sum(C, oc, -torch.einsum("oki,ok->oi", Jc, wr))
+    bp = segment_sum(Q, op, -torch.einsum("oki,ok->oi", Jp, wr))
     Wcp = torch.einsum("oki,okj->oij", Jc, wJp)  # [O, 6, 3]
 
     # LM damping, multiplicative on the diagonal (g2o's Levenberg)
@@ -126,7 +122,7 @@ def _normal_blocks(prob, cam, lam, robust, active):
     dHp = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6)
     Hpp_d = Hpp + torch.diag_embed(dHp)
     # unobserved points get identity blocks (their dxp stays 0: bp = 0)
-    seen = _sum_into(Q, op, w) > 0.0
+    seen = segment_sum(Q, op, w) > 0.0
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     Hpp_d = torch.where(seen[:, None, None], Hpp_d, eye3)
     return Hcc_d, inv3x3(Hpp_d), bc, bp, Wcp, seen
@@ -146,7 +142,7 @@ def _schur_step(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
     Q = prob.pt_xyz.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
     Hcc_d, Hpp_inv, bc, bp, Wcp, seen = _normal_blocks(prob, cam, lam, robust, active)
-    Wqc = _sum_into(Q * C, op * C + oc, Wcp).view(Q, C, 6, 3)
+    Wqc = segment_sum(Q * C, op * C + oc, Wcp).view(Q, C, 6, 3)
 
     # S = Hcc_d - sum_q Wqc Hpp^-1 Wqc^T, rhs = bc - Wqc Hpp^-1 bp
     Y = torch.einsum("qcij,qjk->qcik", Wqc, Hpp_inv)
@@ -185,13 +181,13 @@ def _schur_step_cg(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
     def schur_matvec(v):  # v [C, 6]
         v = torch.where(fix[:, None], 0.0, v)
         hv = torch.einsum("cij,cj->ci", Hcc_d, v)
-        u = _sum_into(Q, op, torch.einsum("oji,oj->oi", Wcp, v[oc]))
+        u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, v[oc]))
         y = torch.einsum("qij,qj->qi", Hpp_inv, u)
-        wv = _sum_into(C, oc, torch.einsum("oij,oj->oi", Wcp, y[op]))
+        wv = segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, y[op]))
         return torch.where(fix[:, None], v, hv - wv)
 
     yb = torch.einsum("qij,qj->qi", Hpp_inv, bp)
-    rhs = bc - _sum_into(C, oc, torch.einsum("oij,oj->oi", Wcp, yb[op]))
+    rhs = bc - segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, yb[op]))
     rhs = torch.where(fix[:, None], 0.0, rhs)
 
     Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * eye6).inverse
@@ -218,7 +214,7 @@ def _schur_step_cg(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
         rz = rz_new
     dxc = torch.where(torch.isfinite(x).all(), x, 0.0)
     dxc = torch.where(fix[:, None], 0.0, dxc)
-    u = _sum_into(Q, op, torch.einsum("oji,oj->oi", Wcp, dxc[oc]))
+    u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, dxc[oc]))
     return dxc, _back_substitute(prob, Hpp_inv, bp, u, seen)
 
 

@@ -60,6 +60,12 @@ def put_add(x: torch.Tensor, idx: torch.Tensor, v) -> torch.Tensor:
     return _padded(x, 0).index_add_(0, idx, v.to(x.dtype))[:-1]
 
 
+def segment_sum(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """zeros(n, ...) with the rows of v added at idx (repeats accumulate;
+    every idx < n): the JAX package's `jnp.zeros(...).at[idx].add(v)`."""
+    return v.new_zeros((n,) + v.shape[1:]).index_add_(0, idx, v)
+
+
 def put_row(x: torch.Tensor, i: torch.Tensor, row: torch.Tensor) -> torch.Tensor:
     """Copy of x with x[i] = row for a 0-d index tensor i < len(x)."""
     out = x.clone()

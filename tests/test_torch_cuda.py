@@ -31,6 +31,10 @@ Loop correction: `_correct_loop_device` and one global BA chunk on
 same inputs (poses atol 1e-3 and 5e-3 after the chunk, links >= 99%
 equal, points within 1e-2 on >= 99%), both again under
 set_sync_debug_mode("error").
+The distributed BA (parallel/dist_ba.py) on the card against the CPU
+port at 1 and 4 shards (poses atol 1e-3), with 15 collectives per LM
+iteration and no host sync; a 1-rank NCCL group equal to the
+one-process form under deterministic index adds.
 """
 
 import os
@@ -382,3 +386,75 @@ def test_loop_correction_on_the_card_matches_cpu(dev):
     np.testing.assert_array_equal(A["kf_loop_edge"], B["kf_loop_edge"])
     # the chunk's bound is chip_smoke.py's GBA_POSE_ATOL
     assert chunk_gap <= 5e-3 and chunk_pts >= 0.99
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def test_dist_bundle_adjust_on_the_card_matches_cpu(dev):
+    """The distributed BA on the KITTI-shaped synthetic problem, 1 and 4
+    shards in one process, on the card against the CPU port (poses atol
+    1e-3: float32 index adds in another order on each device), 15
+    collectives per LM iteration, and no host sync."""
+    from orb_slam2_test_tpu_torch.parallel import dist_ba
+    from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
+    from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+    f32_matmuls()
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        prob, cam = synthetic_ba_problem(64, 4000, 5, seed=3, device=d)
+        for n in (1, 4):
+            sprob = dist_ba.shard_problem(prob, n)
+            mesh = dist_ba.make_ba_mesh(n, d)
+            dist_ba.PSUM.calls = 0
+            out[d.type, n] = [x.cpu() for x in dist_ba.dist_bundle_adjust(sprob, cam, mesh,
+                                                                          iters=4)]
+            assert dist_ba.PSUM.calls == 4 * 15
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    dist_ba.dist_bundle_adjust(sprob, cam, mesh, iters=4)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+    for n in (1, 4):
+        gap = float((out["cuda", n][0] - out["cpu", n][0]).abs().max())
+        print(f"{n} shards: card vs CPU poses {gap:.2e}")
+        assert gap <= 1e-3
+        np.testing.assert_allclose(float(out["cuda", n][2]), float(out["cpu", n][2]), rtol=1e-3)
+
+
+def test_nccl_one_rank_matches_one_process(dev):
+    """A 1-rank NCCL group against the one-process form: equal, with
+    deterministic index adds on both sides (the all-reduce of one rank
+    returns its input)."""
+    import torch.distributed as dist
+
+    from orb_slam2_test_tpu_torch.parallel import dist_ba, multihost
+    from orb_slam2_test_tpu_torch.utils.synthetic import synthetic_ba_problem
+
+    prob, cam = synthetic_ba_problem(32, 2000, 5, seed=4, device=dev)
+    sprob = dist_ba.shard_problem(prob, 1)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        one = dist_ba.dist_bundle_adjust(sprob, cam, dist_ba.make_ba_mesh(1, dev), iters=4)
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                                world_size=1, rank=0)
+        try:
+            mesh = multihost.global_ba_mesh(dev)
+            assert mesh.distributed and mesh.size == 1
+            got = dist_ba.dist_bundle_adjust(multihost.make_global_problem(sprob, mesh), cam,
+                                             mesh, iters=4)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for a, b in zip(got, one):
+        assert torch.equal(a, b)

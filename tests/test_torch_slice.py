@@ -124,7 +124,8 @@ def test_port_never_imports_jax():
                 "solvers.initializer", "io.settings", "io.datasets", "io.trajectory",
                 "io.checkpoint", "evaluation.ate", "system", "cli", "utils.synthetic",
                 "geometry.sim3", "solvers.sim3_solver", "solvers.pose_graph",
-                "solvers.ba_core", "engine.loop_closing"):
+                "solvers.ba_core", "engine.loop_closing", "parallel", "parallel.dist_ba",
+                "parallel.multi_map", "parallel.multihost"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
     assert has_yaml == "False" and has_cv2 == "False"
