@@ -32,7 +32,13 @@ Not ported, on purpose:
   (the caller checks `_fused_applicable`), so the branch cannot run.
 - `_grow_map_device`'s `stages` argument truncates the program for
   profiling on the TPU; torch.profiler attributes time per operator.
-- The profiler spans belong to a later slice.
+
+The host stages carry the JAX package's profiler spans
+(`utils.profiling.profiler`, host wall-clock, no device sync):
+frame_build or track_frame_fused per frame, relocalization,
+track_reference_kf, track_local_map, keyframe_insert (the keyframe
+decision and any insert), grow_capacity, global_ba_chunk and
+loop_closing.
 
 With a vocabulary (`enable_place_recognition`) relocalization queries
 the keyframe database and solves PnP RANSAC, and every resolved
@@ -103,6 +109,7 @@ from orb_slam2_test_tpu_torch.solvers.initializer import (
 from orb_slam2_test_tpu_torch.solvers.pnp import SAMPLE as PNP_SAMPLE
 from orb_slam2_test_tpu_torch.solvers.pose_opt import pose_optimization
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
+from orb_slam2_test_tpu_torch.utils.profiling import profiler
 from orb_slam2_test_tpu_torch.utils.scatter import put, put_row, select, take
 
 
@@ -636,6 +643,10 @@ class Tracker:
         self._ref_Tcw_host = None  # host cache of kf_Tcw[ref_kf]
         self.init_frame: Optional[FrameData] = None
         self.last_frame: Optional[FrameData] = None
+        # the last image as the caller passed it (numpy or a tensor),
+        # kept for the viewers' frame overlay (reference
+        # FrameDrawer::Update copies mImGray): no copy, no readback here
+        self.last_image = None
         self.last_feat_pt = None  # [N] point id per last-frame feature
         self.cur_feat_pt = None
         self.n_tracked = 0
@@ -682,31 +693,41 @@ class Tracker:
     def process_image_mono(self, img, timestamp: float):
         """System::TrackMonocular -> GrabImageMonocular."""
         timestamp = self._rel_ts(timestamp)
+        self.last_image = img
         a = self._upload(img)
         if self._fused_applicable():
-            frame, fused = self._build_and_track("mono", a, None, timestamp)
+            with profiler.span("track_frame_fused"):
+                frame, fused = self._build_and_track("mono", a, None, timestamp)
             return self._track(frame, fused=fused)
-        return self._track(build_frame_mono(a, timestamp, self.cam, **self._frame_kw()))
+        with profiler.span("frame_build"):
+            frame = build_frame_mono(a, timestamp, self.cam, **self._frame_kw())
+        return self._track(frame)
 
     def process_image_stereo(self, img_left, img_right, timestamp: float):
         """System::TrackStereo -> GrabImageStereo."""
         timestamp = self._rel_ts(timestamp)
+        self.last_image = img_left
         a, b = self._upload(img_left), self._upload(img_right)
         if self._fused_applicable():
-            frame, fused = self._build_and_track("stereo", a, b, timestamp)
+            with profiler.span("track_frame_fused"):
+                frame, fused = self._build_and_track("stereo", a, b, timestamp)
             return self._track(frame, use_depth=True, fused=fused)
-        frame = build_frame_stereo(a, b, timestamp, self.cam, **self._frame_kw())
+        with profiler.span("frame_build"):
+            frame = build_frame_stereo(a, b, timestamp, self.cam, **self._frame_kw())
         return self._track(frame, use_depth=True)
 
     def process_image_rgbd(self, img, depth, timestamp: float):
         """System::TrackRGBD -> GrabImageRGBD; depth in metres."""
         timestamp = self._rel_ts(timestamp)
+        self.last_image = img
         a, d = self._upload(img), self._upload(depth, torch.float32)
         if self._fused_applicable():
-            frame, fused = self._build_and_track("rgbd", a, d, timestamp)
+            with profiler.span("track_frame_fused"):
+                frame, fused = self._build_and_track("rgbd", a, d, timestamp)
             return self._track(frame, use_depth=True, fused=fused)
-        return self._track(build_frame_rgbd(a, d, timestamp, self.cam, **self._frame_kw()),
-                           use_depth=True)
+        with profiler.span("frame_build"):
+            frame = build_frame_rgbd(a, d, timestamp, self.cam, **self._frame_kw())
+        return self._track(frame, use_depth=True)
 
     # ------------------------------------------------------------------
     def _track(self, frame: FrameData, use_depth: bool = False, fused=None):
@@ -726,9 +747,11 @@ class Tracker:
         relocalizing = self.state == TrackingState.LOST
         if relocalizing:
             self.flush_backend()
-            ok = self._relocalize(frame)
+            with profiler.span("relocalization"):
+                ok = self._relocalize(frame)
             if ok:
-                ok = self._track_local_map(frame)
+                with profiler.span("track_local_map"):
+                    ok = self._track_local_map(frame)
         else:
             # build and track ran as one program, unless the motion model
             # was not ready (see `_fused_applicable`)
@@ -736,9 +759,11 @@ class Tracker:
             if not handled:
                 # motion model unavailable or its gates failed: the
                 # reference keyframe, then the local map
-                ok = self._track_reference_kf(frame)
+                with profiler.span("track_reference_kf"):
+                    ok = self._track_reference_kf(frame)
                 if ok:
-                    ok = self._track_local_map(frame)
+                    with profiler.span("track_local_map"):
+                        ok = self._track_local_map(frame)
         if ok:
             self.state = TrackingState.OK
             # constant velocity = Tcw_t @ Tcw_{t-1}^-1, on the host. After
@@ -754,7 +779,8 @@ class Tracker:
                              else self.last_Tcw @ _inv4(self._prev_Tcw))
             self._after_loop = False
             if not self.localization_only:
-                self._maybe_insert_keyframe(frame, use_depth)
+                with profiler.span("keyframe_insert"):
+                    self._maybe_insert_keyframe(frame, use_depth)
             self.last_feat_pt = self.cur_feat_pt
             self.trajectory.append((self._cur_ts_abs, np.asarray(self.last_Tcw)))
             if self._ref_is_new_kf:
@@ -1253,18 +1279,19 @@ class Tracker:
                        max_points: int | None = None) -> None:
         """Grow the map's fixed capacities (the reference's map is
         unbounded); the observer bitmap is rebuilt at the new shape."""
-        old_cap = self.cap
-        self.cfg = dataclasses.replace(
-            self.cfg,
-            max_keyframes=max_keyframes or self.cfg.max_keyframes,
-            max_points=max_points or self.cfg.max_points,
-        )
-        self.cap = self.cfg.map_capacity
-        self.map = grow_map(self.map, old_cap, self.cap)
-        self._obs_bm = None
-        if self.loop_closer is not None:
-            # a pending global BA goes on at the new shapes
-            self.loop_closer.grow_pending(self.cfg.max_keyframes, self.cfg.max_points)
+        with profiler.span("grow_capacity"):
+            old_cap = self.cap
+            self.cfg = dataclasses.replace(
+                self.cfg,
+                max_keyframes=max_keyframes or self.cfg.max_keyframes,
+                max_points=max_points or self.cfg.max_points,
+            )
+            self.cap = self.cfg.map_capacity
+            self.map = grow_map(self.map, old_cap, self.cap)
+            self._obs_bm = None
+            if self.loop_closer is not None:
+                # a pending global BA goes on at the new shapes
+                self.loop_closer.grow_pending(self.cfg.max_keyframes, self.cfg.max_points)
         self.growth_events.append({"frame": self.frame_id - 1, "cap_kf": self.cfg.max_keyframes,
                                    "cap_pt": self.cfg.max_points})
 
@@ -1303,13 +1330,14 @@ class Tracker:
         if torch.is_tensor(self.ref_kf):
             self.ref_kf = int(self.ref_kf)
         if self.loop_closer is not None:
-            # spans in the JAX package's order: "global_ba_chunk", then
-            # "loop_closing". A pending global BA advances by one chunk
-            # before this keyframe's detection (a closed loop drops the
-            # chunks left, reference mbStopGBA)
-            self.map, _ = self.loop_closer.advance_global_ba(self.map)
+            # a pending global BA advances by one chunk before this
+            # keyframe's detection (a closed loop drops the chunks left,
+            # reference mbStopGBA)
+            with profiler.span("global_ba_chunk"):
+                self.map, _ = self.loop_closer.advance_global_ba(self.map)
             m_before = self.map
-            m, closed = self.loop_closer.on_new_keyframe(m_before, kf)
+            with profiler.span("loop_closing"):
+                m, closed = self.loop_closer.on_new_keyframe(m_before, kf)
             if self.loop_closer.last_candidate is not None:
                 self.last_diag["loop_candidate"] = self.loop_closer.last_candidate
             if closed:

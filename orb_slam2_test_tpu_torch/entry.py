@@ -93,6 +93,8 @@ KITTI_CFG = TrackerConfig(
     ba_pt_cap=8192,
     kf_ref_ratio=0.75,
 )
+# KITTI's camera rate: the frames' timestamp spacing, 1 / KITTI_FPS s
+KITTI_FPS = 10.0
 # map occupancy of the bench, representative of mid-sequence KITTI
 KITTI_N_KF = 200
 KITTI_N_PT = 110000
@@ -832,7 +834,25 @@ def kitti_sequence(
     """`band_sequence` at KITTI geometry (1241x376, bands at 20.3-48.3 m,
     1.07 m per view, 10 fps). The map starts empty: the Tracker
     initializes it from the first stereo frame."""
-    return band_sequence(rng, KITTI_CAM, n_frames, device)
+    return band_sequence(rng, KITTI_CAM, n_frames, device, KITTI_FPS)
+
+
+# an epoch-scale first timestamp for live streams (2025-10): float32
+# cannot hold t0 + 0.1, so the Tracker's relative timestamps are needed
+LIVE_T0 = 1.76e9
+
+
+def kitti_live_frames(rng: np.random.Generator, n_frames: int) -> BandSequence:
+    """`kitti_sequence`'s frames as a camera would send them: host uint8
+    images (rounded and clamped to 0..255) and epoch-scale timestamps
+    LIVE_T0 + i / KITTI_FPS, for the live path and the direct run it is
+    held against."""
+    seq = kitti_sequence(rng, n_frames, "cpu")
+    frames = [(LIVE_T0 + i / KITTI_FPS,
+               *(x.to(torch.float32).round().clamp(0, 255).to(torch.uint8).numpy()
+                 for x in (left, right)))
+              for i, (_, left, right) in enumerate(seq.frames)]
+    return BandSequence(frames=frames, T_true=seq.T_true)
 
 
 def kitti_multi_sequence(seeds=(0, 1, 2), n_frames: int = 30,
@@ -848,11 +868,13 @@ def kitti_system(device: torch.device | str = "cuda", vocabulary=None,
     KITTI_CFG's 2000 features, K = 384, P = 131,072 and caps of 8192),
     from an empty map; as for any settings, at most fps = 10 frames pass
     between keyframes. `vocabulary` is System's (None, "default", a path
-    or a Vocabulary); `overrides` are TrackerConfig fields."""
+    or a Vocabulary); `overrides` are System's viewer arguments
+    (use_viewer, viewer_dir, live_viewer_port) and TrackerConfig
+    fields."""
     c = KITTI_CFG
     settings = SlamSettings(
         fx=KITTI_CAM.fx, fy=KITTI_CAM.fy, cx=KITTI_CAM.cx, cy=KITTI_CAM.cy,
-        bf=KITTI_CAM.bf, width=KITTI_CAM.width, height=KITTI_CAM.height, fps=10.0,
+        bf=KITTI_CAM.bf, width=KITTI_CAM.width, height=KITTI_CAM.height, fps=KITTI_FPS,
         n_features=c.n_features, max_keyframes=c.max_keyframes, max_points=c.max_points,
         local_pt_cap=c.local_pt_cap, ba_pt_cap=c.ba_pt_cap,
     )

@@ -4,7 +4,8 @@ src/System.cc).
 Port of orb_slam2_test_tpu/system.py:
 
   reference System::                  here:
-    System(voc, settings, sensor)  ->  System(settings, sensor, vocabulary, device)
+    System(voc, settings, sensor,  ->  System(settings, sensor, vocabulary, device,
+           bUseViewer)                        use_viewer, viewer_dir, live_viewer_port)
     TrackMonocular(im, t)          ->  track_monocular(img, t)
     TrackStereo(imL, imR, t)       ->  track_stereo(imgL, imgR, t)
     TrackRGBD(im, depth, t)        ->  track_rgbd(img, depth, t)
@@ -20,13 +21,15 @@ Port of orb_slam2_test_tpu/system.py:
 
 The engine runs on `device`, the card unless the caller asks for
 another; asking for the card without one raises. The reference runs
-Tracking, LocalMapping and LoopClosing as three threads; here a keyframe
-insert is queued on the card behind tracking and resolved at the next
-keyframe decision, and a resolved keyframe then enters the
-place-recognition database. With a vocabulary the Tracker relocalizes
-by BoW candidates and PnP RANSAC and detects loop candidates; closing a
-loop (Sim3, the essential graph, global BA) and the viewers are not
-ported yet.
+Tracking, LocalMapping, LoopClosing and the Viewer as four threads;
+here a keyframe insert is queued on the card behind tracking and
+resolved at the next keyframe decision, and a resolved keyframe then
+enters the place-recognition database and the loop closer (detection,
+Sim3, the essential graph and a chunked global BA). With a vocabulary
+the Tracker also relocalizes by BoW candidates and PnP RANSAC. The
+viewer (`live_viewer_port`: the HTTP live viewer, first; else
+`use_viewer`: PNG snapshots into `viewer_dir`) updates after each
+frame's timed call, on the tracking thread.
 """
 
 from __future__ import annotations
@@ -63,13 +66,18 @@ class System:
         sensor: str = MONOCULAR,
         vocabulary=None,
         device: torch.device | str = "cuda",
+        use_viewer: bool = False,
+        viewer_dir: str = "viewer_out",
+        live_viewer_port: int | None = None,
         **config_overrides,
     ):
         """settings: a reference-format YAML path or a SlamSettings.
         vocabulary: None (no place recognition), "default" (the packaged
         artifact; a warning and no place recognition if it is absent), a
-        path (.npz or DBoW2 text) or a Vocabulary. config_overrides:
-        TrackerConfig fields."""
+        path (.npz or DBoW2 text) or a Vocabulary. live_viewer_port:
+        serve the live viewer on this port (0: any free port, see
+        `viewer.port`); use_viewer: PNG snapshots into viewer_dir.
+        config_overrides: TrackerConfig fields."""
         if sensor not in _SENSORS:
             raise ValueError(f"sensor must be one of {_SENSORS}")
         self.sensor = sensor
@@ -103,6 +111,17 @@ class System:
             self.tracker.enable_place_recognition(
                 self.vocabulary, fix_scale=(sensor != MONOCULAR))
 
+        self.viewer = None
+        if live_viewer_port is not None:
+            from orb_slam2_test_tpu_torch.viz.live_viewer import LiveViewer
+
+            self.viewer = LiveViewer(self, port=live_viewer_port)
+            print(f"live viewer: http://localhost:{self.viewer.port}/")
+        elif use_viewer:
+            from orb_slam2_test_tpu_torch.viz.viewer import Viewer
+
+            self.viewer = Viewer(self, out_dir=viewer_dir)
+
     # ------------------------------------------------------------------
     def track_monocular(self, img, timestamp: float):
         if self.sensor != MONOCULAR:
@@ -124,6 +143,8 @@ class System:
         t0 = time.perf_counter()
         pose = fn()
         self._frame_times.append(time.perf_counter() - t0)
+        if self.viewer is not None:
+            self.viewer.update()  # outside the timed call
         return pose
 
     # ------------------------------------------------------------------
@@ -140,11 +161,13 @@ class System:
         self._frame_times = []
 
     def shutdown(self):
-        """Resolve the deferred inserts and wait for the device (the
-        reference joins its threads here)."""
+        """Resolve the deferred inserts, wait for the device, then close
+        the viewer (the reference joins its threads here)."""
         self.tracker.drain_backend()
         if self.tracker.device.type == "cuda":
             torch.cuda.synchronize(self.tracker.device)
+        if self.viewer is not None:
+            self.viewer.close()
 
     # ------------------------------------------------------------------
     @property

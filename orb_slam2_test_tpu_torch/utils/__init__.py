@@ -1,1 +1,2 @@
-"""Support code: the CUDA kernel builder and precision flags."""
+"""Support code: the CUDA kernel builder, precision flags, scatters, the
+stage profiler and synthetic scenes."""

@@ -101,7 +101,8 @@ def test_tracking_step_full_size_matches_graft_entry():
 
 def test_port_never_imports_jax():
     """Walking the package imports neither JAX nor the JAX package, nor
-    PyYAML or OpenCV at module level (the card's machine has neither)."""
+    PyYAML, OpenCV or matplotlib at module level (the card's machine has
+    none of them)."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import orb_slam2_test_tpu_torch as p\n"
@@ -109,14 +110,14 @@ def test_port_never_imports_jax():
         "for n in names: importlib.import_module(n)\n"
         "print(','.join(names), 'jax' in sys.modules, "
         "any(m.startswith('orb_slam2_test_tpu.') for m in sys.modules), "
-        "'yaml' in sys.modules, 'cv2' in sys.modules)\n"
+        "'yaml' in sys.modules, 'cv2' in sys.modules, 'matplotlib' in sys.modules)\n"
     )
     out = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
         timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    names, has_jax, has_jax_pkg, has_yaml, has_cv2 = out.stdout.split()
+    names, has_jax, has_jax_pkg, has_yaml, has_cv2, has_mpl = out.stdout.split()
     names = set(names.split(","))
     assert len(names) >= 40  # every subpackage and module was imported
     for mod in ("ops.stereo", "ops.matching", "slam_map.mapstate", "slam_map.covisibility",
@@ -125,10 +126,12 @@ def test_port_never_imports_jax():
                 "io.checkpoint", "evaluation.ate", "system", "cli", "utils.synthetic",
                 "geometry.sim3", "solvers.sim3_solver", "solvers.pose_graph",
                 "solvers.ba_core", "engine.loop_closing", "parallel", "parallel.dist_ba",
-                "parallel.multi_map", "parallel.multihost"):
+                "parallel.multi_map", "parallel.multihost", "io.live", "utils.profiling",
+                "viz", "viz.live_viewer", "viz.map_drawer", "viz.frame_drawer", "viz.viewer",
+                "viz.ar"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
-    assert has_yaml == "False" and has_cv2 == "False"
+    assert has_yaml == "False" and has_cv2 == "False" and has_mpl == "False"
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

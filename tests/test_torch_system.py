@@ -19,6 +19,7 @@ and the CLI on the synthetic TUM mono recipe of
 """
 
 import dataclasses
+import json
 import os
 import re
 
@@ -355,3 +356,90 @@ def test_cli_vocabulary_options(recipe, tmp_path):
     assert system.tracker.loop_closer.voc is system.vocabulary
     assert system.vocabulary.n_words <= 16 and not system.tracker.loop_closer.fix_scale
     assert System(settings, "monocular", vocabulary=None, device="cpu").tracker.loop_closer is None
+
+
+def test_system_viewers_on_the_cpu(recipe, tmp_path):
+    """System(use_viewer=True) writes PNG snapshots every `every` frames
+    and a final pair at shutdown; System(live_viewer_port=0) serves the
+    map while tracking and stops its server at shutdown. The viewer runs
+    after the timed call: each frame is timed once."""
+    import urllib.request
+
+    d, settings = recipe
+    frames = list(tdatasets.load_tum_mono(d))[:6]
+    out = str(tmp_path / "viewer")
+    system = System(settings, "monocular", device="cpu", use_viewer=True, viewer_dir=out)
+    system.viewer.every = 2
+    for ts, img in frames:
+        system.track_monocular(img, ts)
+    system.shutdown()
+    assert system.timing_stats()["n"] == 6
+    assert sorted(os.listdir(out)) == [
+        "frame_000002.png", "frame_000004.png", "frame_000006.png", "frame_final.png",
+        "map_000002.png", "map_000004.png", "map_000006.png", "map_final.png"]
+
+    live = System(settings, "monocular", device="cpu", live_viewer_port=0, use_viewer=True)
+    viewer = live.viewer
+    assert type(viewer).__name__ == "LiveViewer"  # the live viewer comes first
+    viewer.every = 2
+    for ts, img in frames:
+        live.track_monocular(img, ts)
+    with urllib.request.urlopen(f"http://127.0.0.1:{viewer.port}/state.json", timeout=10) as r:
+        state = json.loads(r.read())
+    assert state["frame"] == 6 and state["state"] == live.tracking_state == "OK"
+    assert len(state["kf"]) == int(live.tracker.map.kf_valid.sum()) >= 2
+    assert len(state["traj"]) == len(live.tracker.trajectory)
+    live.shutdown()
+    assert not viewer._thread.is_alive()
+
+
+def test_trace_window_and_profile_scope():
+    """--device-trace's frames are the JAX driver's (examples/_runner.py:
+    min(20, n // 2) up to min(40, n - 1)); a live stream, of no known
+    length, traces 20-40. --profile empties the profiler, prints its
+    report at the end and turns it off again."""
+    from orb_slam2_test_tpu_torch.utils.profiling import profiler
+
+    for n in (1, 8, 41, 100):
+        assert cli._trace_window(n) == (min(20, n // 2), min(40, n - 1))
+    assert cli._trace_window() == cli.TRACE_WINDOW == (20, 40)
+    assert not profiler.enabled
+    profiler.enable()
+    profiler.add("stale", 1.0)
+    profiler.disable()
+    logs = []
+    with cli._profiled(True, logs.append):
+        assert profiler.enabled and "stale" not in profiler.report()
+        with profiler.span("stage"):
+            pass
+    assert not profiler.enabled
+    assert "stage" in logs[-1] and "stale" not in logs[-1]
+    with cli._profiled(False, logs.append):
+        assert not profiler.enabled
+    assert len(logs) == 2
+
+
+def test_cli_profile_trace_and_live_viewer(recipe, tmp_path, capsys):
+    """mono_tum with --profile prints the Tracker's stage table at exit,
+    --device-trace writes a trace of the frame window, --live-viewer 0
+    serves on a free port."""
+    from orb_slam2_test_tpu_torch.utils import profiling
+
+    d, settings = recipe
+    trace = str(tmp_path / "trace")
+    assert cli.main([
+        "mono_tum", settings, d, "--device", "cpu", "--no-vocabulary", "--max-frames", "8",
+        "--profile", "--device-trace", trace, "--live-viewer", "0",
+        "--traj-out", str(tmp_path / "t.txt"), "--kf-traj-out", str(tmp_path / "k.txt"),
+    ]) == 0
+    # the run turns the profiler off again; its samples stay until the next run
+    assert not profiling.profiler.enabled
+    report = profiling.profiler.report()
+    out = capsys.readouterr().out
+    assert "live viewer: http://localhost:" in out
+    assert "median ms" in out and "frame_build" in out
+    assert report["frame_build"]["count"] + report.get("track_frame_fused", {"count": 0})[
+        "count"] == 8
+    with open(os.path.join(trace, "trace.json")) as f:
+        events = json.load(f)["traceEvents"]
+    assert sum(str(e.get("name")).startswith("aten::") for e in events) > 1000
