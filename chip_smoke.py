@@ -190,7 +190,29 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    mean; CUDA events and host wall), live against direct over the same
    frames before and after the trace, the upload's share, `refresh()`'s
    parts, and the trace's device busy time and idle share beside the
-   spans of the same frames.
+   spans of the same frames;
+18. the offline tools (tools/, through the CLI's parser; run before 17,
+   since a process that has traced the card runs slower afterwards):
+   (a) `make_synth_data kitti` writes [15b]'s ring (RING_FRAMES frames,
+   radius RING_RADIUS, RING_REVOLUTIONS laps, 6000 landmarks, seed 0)
+   with one spawned process per core: read back through
+   `io.datasets.load_kitti`, every image bit-equal to [15b]'s
+   `render_loop_stereo` in memory, the ground truth within 1e-5 of its
+   poses, no kernel launch; (b) `build_vocab` on a reduced sweep
+   (VOCAB_SWEEP, k = 10, L = VOCAB_DEPTH): one patch_gather launch per
+   frame and no pose_opt launch, frame 0 equal to the CPU port's frame in
+   keypoints and within [4]'s 3 flipped bits, the tree equal to the CPU
+   port's from the card's descriptors; prints the extraction ms/frame
+   (CUDA events), the k-means and idf seconds; (c) `vocab_recall` on
+   (a)'s dataset with the packaged L6 and (b)'s tree (split
+   RECALL_SPLIT, stride RECALL_STRIDE): one patch_gather launch per frame,
+   the report equal to the CPU port's from the card's descriptors; prints
+   the recall; (d) `ba_window_sweep` at SWEEP_WINDOWS over (a)'s first
+   SWEEP_FRAMES frames (before the loop): 3 + 0 launches on the first
+   frame and 3 + 2 on every other, 0 lost, 0 loops; the window-16 row's
+   keyframe ids equal to `cli.run`'s on the same frames at the dataset's
+   settings, its poses within SWEEP_POSE_ATOL. Each reduced size is
+   printed beside its default.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -1033,7 +1055,7 @@ def _kitti_loop_phase(dev, card: str) -> dict:
                ate_before_loop_m=before.get("ate", {}).get("rmse"),
                ate_end_m=ate_end["rmse"], frame_ms_median=statistics.median(frame_ms),
                frame_ms_mean=statistics.mean(frame_ms), loop_frames=loop_frames,
-               launches_per_frame=counts, launches=launches,
+               launches_per_frame=counts, launches=launches, ring=seq,
                correct_vs_cpu={"pose_gap": pose_gap, "links": links, "pt_share": pt_share,
                                "card_self_gap": self_gap},
                gba_chunk_vs_cpu={"pose_gap": gba_gap, "pt_share": gba_pt_share})
@@ -1875,6 +1897,294 @@ def _kitti_live_phase(dev, card: str) -> dict:
     }
 
 
+# [18]: the offline tools (tools/) through the CLI's parser on the card.
+# [18a] writes [15b]'s ring (the same frames, radius, laps, landmarks and
+# seed) as a KITTI dataset; [18b] trains a reduced vocabulary; [18c]
+# measures recall on [18a]'s dataset; [18d] sweeps two local-BA windows
+# over its frames before the loop (the lap is 157 frames, the loop
+# closes at ~178)
+VOCAB_SWEEP = (4, 4, 1200)  # [18b]: scenes, frames per scene, features (default 24, 8, 1200)
+VOCAB_DEPTH = 4  # [18b]: L (default 5)
+RECALL_SPLIT = 157  # [18c]: one lap; the rest revisits the start
+RECALL_STRIDE = 2
+SWEEP_WINDOWS = (16, 32)
+SWEEP_FRAMES = 80  # [18d]: 20 keyframes at [15b]'s cadence, more than the 16-window
+SWEEP_POSE_ATOL = 1e-3  # [18d]: the window-16 row vs cli.run, both on the card
+
+
+def _tap_tie_ratio(raw, angle) -> np.ndarray:
+    """[N, 256] |a - b| / (|a| + |b|) of each BRIEF bit's two blurred taps
+    in float32, in the bin of each keypoint's angle, from its raw
+    [N, 38, 38] CPU patches (`ops.patches.orb_from_patches`'s float32
+    path)."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.ops import patches
+
+    n = raw.shape[0]
+    _, A, AT, D = patches._operators(raw.device, torch.float32)
+    blurred = ((A @ raw) @ AT).reshape(n, -1)
+    blurred = blurred - blurred.mean(dim=1, keepdim=True)
+    shape = (n, patches.N_ANGLE_BINS, patches.N_BITS)
+    rows = torch.arange(n)
+    bins = torch.from_numpy(_bins(angle.numpy()))
+    diff = (blurred @ D).reshape(shape)[rows, bins].abs()
+    mag = (blurred.abs() @ D.abs()).reshape(shape)[rows, bins]
+    return (diff / mag.clamp(min=1e-30)).numpy()
+
+
+def _tool_args(argv: list):
+    from orb_slam2_test_tpu_torch import cli
+
+    return cli.build_parser().parse_args(argv)
+
+
+def _offline_tools_phase(dev, card: str, ring) -> dict:
+    """[18a]-[18d]: make_synth_data, build_vocab, vocab_recall and
+    ba_window_sweep on the card."""
+    import tempfile
+
+    import torch
+
+    from orb_slam2_test_tpu_torch import cli, entry
+    from orb_slam2_test_tpu_torch.bow.vocabulary import DEFAULT_VOCABULARY_PATH, build_vocabulary
+    from orb_slam2_test_tpu_torch.engine.frame import build_frame_mono
+    from orb_slam2_test_tpu_torch.io.datasets import load_kitti
+    from orb_slam2_test_tpu_torch.io.trajectory import load_trajectory_tum
+    from orb_slam2_test_tpu_torch.ops import extractor
+    from orb_slam2_test_tpu_torch.system import System
+    from orb_slam2_test_tpu_torch.tools import (
+        ba_window_sweep,
+        build_vocab,
+        make_synth_data,
+        vocab_recall,
+    )
+
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 18a. make_synth_data kitti: [15b]'s ring as files
+        d = os.path.join(tmp, "ring")
+        workers = os.cpu_count() or 1
+        n = RING_FRAMES
+        argv = ["make_synth_data", "kitti", "--out", d, "--frames", str(n), "--radius",
+                str(RING_RADIUS), "--revolutions", str(RING_REVOLUTIONS), "--workers",
+                str(workers), "--device", str(dev)]
+        _zero_launches()
+        t0 = time.perf_counter()
+        _check(make_synth_data.main(_tool_args(argv)) == 0, "[18a] make_synth_data failed")
+        write_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        t0 = time.perf_counter()
+        seq = load_kitti(d, stereo=True)
+        _check(len(seq) == n, f"[18a] {len(seq)} frames read back of {n}")
+        for i, it in enumerate(seq.items):
+            _, left, right = seq.load(it)
+            _check(np.array_equal(left, ring.images[i, 0]) and
+                   np.array_equal(right, ring.images[i, 1]),
+                   f"[18a] frame {i} differs from render_loop_stereo's")
+            _check(abs(it.timestamp - i / ring.fps) < 1e-6, f"[18a] timestamp of frame {i}")
+        gt = load_trajectory_tum(os.path.join(d, "groundtruth.txt"))
+        # groundtruth.txt holds camera-to-world poses
+        gt_gap = max(float(np.abs(np.linalg.inv(T) - T_true).max())
+                     for (_, T), T_true in zip(gt, ring.T_true))
+        read_s = time.perf_counter() - t0
+        print(f"[18a] make_synth_data kitti: {n} stereo frames 1241x376 of [15b]'s ring "
+              f"(radius {RING_RADIUS} m, {RING_REVOLUTIONS} laps, {entry.KITTI_LOOP_LANDMARKS} "
+              f"landmarks, seed 0) written by {workers} spawned processes in {write_s:.1f} s; "
+              f"read back through io.datasets.load_kitti in {read_s:.1f} s: every image "
+              f"bit-equal to [15b]'s render_loop_stereo in memory, ground truth within "
+              f"{gt_gap:.1e} of its poses; launches {launches}")
+        _check(gt_gap <= 1e-5, f"[18a] ground truth off by {gt_gap}")
+        _check(launches == {"patch_gather": 0, "pose_opt": 0}, f"[18a] launches {launches}")
+        out["make_synth_data"] = {"frames": n, "workers": workers, "write_s": write_s,
+                                  "read_s": read_s, "groundtruth_gap": gt_gap}
+
+        # -- 18b. build_vocab on a reduced sweep
+        scenes, per_scene, n_feat = VOCAB_SWEEP
+        voc_path = os.path.join(tmp, f"vocab_k10_L{VOCAB_DEPTH}.npz")
+        argv = ["build_vocab", "--n-scenes", str(scenes), "--frames-per-scene",
+                str(per_scene), "--n-features", str(n_feat), "--depth", str(VOCAB_DEPTH),
+                "--out", voc_path, "--device", str(dev)]
+        extract_ms = []
+        extract = build_vocab.extract
+
+        def timed_extract(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            desc = extract(*a, **k)
+            end.record()
+            end.synchronize()
+            extract_ms.append(start.elapsed_time(end))
+            return desc
+
+        build_vocab.extract = timed_extract
+        _zero_launches()
+        try:
+            summary = build_vocab.run(_tool_args(argv))
+        finally:
+            build_vocab.extract = extract
+        launches = _launch_counts()
+        n_frames = scenes * per_scene
+        voc = summary["vocabulary"]
+        _, _, cam0, _, img0 = next(build_vocab.synthetic_images(1, 1, 0))
+        f_card = build_frame_mono(torch.from_numpy(img0).to(dev), 0.0, cam0,
+                                  n_features=n_feat)
+        raw_cpu = []
+        orb_from_patches = extractor.orb_from_patches
+        extractor.orb_from_patches = lambda raw: raw_cpu.append(raw) or orb_from_patches(raw)
+        try:
+            f_cpu = build_frame_mono(torch.from_numpy(img0), 0.0, cam0, n_features=n_feat)
+        finally:
+            extractor.orb_from_patches = orb_from_patches
+        card_np = [x.cpu().numpy() for x in (f_card.uv, f_card.level, f_card.valid,
+                                             f_card.desc, f_card.angle)]
+        for field, a, b in zip(("uv", "level", "valid"), card_np,
+                               (f_cpu.uv, f_cpu.level, f_cpu.valid)):
+            _check(np.array_equal(a, b.numpy()), f"[18b] frame 0: card and CPU {field} differ")
+        valid = card_np[2]
+        _check(np.array_equal(card_np[3].view(np.uint32)[valid], summary["frames"][0]),
+               "[18b] frame 0: the tool's descriptors are not the frame's")
+        same_bin = _bins(card_np[4][valid]) == _bins(f_cpu.angle.numpy()[valid])
+        flipped = np.unpackbits((card_np[3][valid] ^ f_cpu.desc.numpy()[valid]).view(np.uint8),
+                                axis=1, bitorder="little")[same_bin].astype(bool)
+        flips = flipped.sum(1)
+        # each flipped bit must be a near-tie of the float32 selection: the
+        # card rounds both blurred taps to bf16 (unit roundoff 2^-8), so a
+        # sign can change only where |a - b| <= 2^-8 (|a| + |b|)
+        ratio = _tap_tie_ratio(raw_cpu[0], f_cpu.angle)[valid][same_bin][flipped]
+        ratio_max = float(ratio.max(initial=0.0))
+        desc = np.concatenate(summary["frames"])
+        cpu_voc = build_vocabulary(desc, k=10, depth=VOCAB_DEPTH, seed=0, device="cpu")
+        same_tree = all(np.array_equal(getattr(voc, f), getattr(cpu_voc, f))
+                        for f in ("node_desc", "node_children", "node_is_leaf", "leaf_word",
+                                  "word_weight"))
+        print(f"[18b] build_vocab: {scenes} scenes x {per_scene} frames x {n_feat} features "
+              f"(default 24 x 8 x 1200), k=10, L={VOCAB_DEPTH} (default 5): "
+              f"{summary['n_descriptors']} descriptors, {voc.n_words} words, "
+              f"{summary['distinct_words']} hit by the re-transform; extraction "
+              f"{statistics.median(extract_ms):.2f} ms/frame median on CUDA events "
+              f"({summary['extract_s'] * 1e3 / n_frames:.1f} ms/frame host wall with the "
+              f"host rendering), k-means {summary['kmeans_s']:.2f} s, idf "
+              f"{summary['idf_s']:.3f} s (host wall; {card}); launches {launches}")
+        print(f"    frame 0 card vs CPU port: keypoints equal; bf16 vs fp32 BRIEF flipped bits "
+              f"per descriptor mean {flips.mean():.3f}, max {flips.max()}, {int(flips.sum())} "
+              f"in all, each a near-tie of the float32 taps: largest |a - b| / (|a| + |b|) "
+              f"{ratio_max:.2e} (bound 2^-8 = {2.0**-8:.2e}); the tree from the "
+              f"card's descriptors equal to the CPU port's from the same descriptors: "
+              f"{same_tree}")
+        _check(launches == {"patch_gather": n_frames, "pose_opt": 0},
+               f"[18b] launches {launches} for {n_frames} frames")
+        _check(ratio_max <= 2.0**-8,
+               f"[18b] a flipped bit {ratio_max} away from a tie of the float32 taps")
+        _check(same_tree, "[18b] the card's tree differs from the CPU port's")
+        _check(os.path.exists(voc_path), "[18b] no npz written")
+        out["build_vocab"] = {
+            "scenes": scenes, "frames_per_scene": per_scene, "n_features": n_feat,
+            "depth": VOCAB_DEPTH, "n_descriptors": summary["n_descriptors"],
+            "n_words": voc.n_words, "distinct_words": summary["distinct_words"],
+            "extract_ms_median": statistics.median(extract_ms),
+            "extract_wall_s": summary["extract_s"], "kmeans_s": summary["kmeans_s"],
+            "idf_s": summary["idf_s"], "flips_max": int(flips.max()),
+            "flips_mean": float(flips.mean()), "flipped_tie_ratio_max": ratio_max,
+            "launches": launches}
+
+        # -- 18c. vocab_recall on 18a's dataset, the packaged L6 and 18b's tree
+        vocabs = [os.path.normpath(DEFAULT_VOCABULARY_PATH), voc_path]
+        _zero_launches()
+        t0 = time.perf_counter()
+        idx_all, descs, centers = vocab_recall.extract_sequence(d, RECALL_STRIDE, 2000, dev)
+        extract_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        t0 = time.perf_counter()
+        rep = vocab_recall.report(d, idx_all, descs, centers, vocabs, RECALL_SPLIT, 8.0, dev)
+        report_s = time.perf_counter() - t0
+        rep_cpu = vocab_recall.report(d, idx_all, descs, centers, vocabs, RECALL_SPLIT, 8.0,
+                                      "cpu", log=lambda *a: None)
+        n_reach = vocab_recall.reachable(centers, idx_all[:rep["n_db"]],
+                                         idx_all[rep["n_db"]:], 8.0)
+        print(f"[18c] vocab_recall on [18a]'s dataset (split {RECALL_SPLIT}, stride "
+              f"{RECALL_STRIDE}, 2000 features, radius 8 m): {rep['n_db']} database frames, "
+              f"{rep['n_queries']} queries ({n_reach} with a database frame within 8 m); recall "
+              f"{json.dumps(rep['vocabs'])}; extraction "
+              f"{extract_s:.1f} s, transforms and scoring {report_s:.1f} s (host wall); the "
+              f"report from the card's descriptors on the CPU port equal: {rep_cpu == rep}; "
+              f"launches {launches}")
+        _check(launches == {"patch_gather": len(idx_all), "pose_opt": 0},
+               f"[18c] launches {launches} for {len(idx_all)} frames")
+        _check(rep_cpu == rep, f"[18c] card report {rep} != CPU report {rep_cpu}")
+        _check(rep["n_queries"] > 0, "[18c] no queries")
+        out["vocab_recall"] = {"report": rep, "reachable_queries": n_reach,
+                               "extract_s": extract_s, "report_s": report_s,
+                               "launches": launches}
+
+        # -- 18d. ba_window_sweep at two windows over the frames before the loop
+        systems, per_frame = [], []
+        track = System.track_stereo
+
+        def counted(self, left, right, t):
+            if not systems or systems[-1] is not self:
+                systems.append(self)
+            c0 = _launch_counts()
+            pose = track(self, left, right, t)
+            c1 = _launch_counts()
+            per_frame.append((len(systems) - 1, c1["patch_gather"] - c0["patch_gather"],
+                              c1["pose_opt"] - c0["pose_opt"]))
+            return pose
+
+        sweep_json = os.path.join(tmp, "sweep.json")
+        argv = ["ba_window_sweep", d, "--windows", *map(str, SWEEP_WINDOWS), "--max-frames",
+                str(SWEEP_FRAMES), "--out", sweep_json, "--device", str(dev)]
+        System.track_stereo = counted
+        _zero_launches()
+        t0 = time.perf_counter()
+        try:
+            _check(ba_window_sweep.main(_tool_args(argv)) == 0, "[18d] ba_window_sweep failed")
+        finally:
+            System.track_stereo = track
+        sweep_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        with open(sweep_json) as f:
+            rows = json.load(f)["rows"]
+        # the same frames through cli.run at the yaml's settings
+        run_args = _tool_args(["stereo_kitti", os.path.join(d, "settings.yaml"), d,
+                               "--max-frames", str(SWEEP_FRAMES), "--device", str(dev),
+                               "--traj-out", os.path.join(tmp, "traj.txt"),
+                               "--kf-traj-out", os.path.join(tmp, "kf.txt")])
+        ref = cli.make_system(run_args, "stereo")
+        cli.run(ref, cli.load_sequence("stereo_kitti", run_args, ref), run_args,
+                log=lambda *a: None)
+        w16 = systems[SWEEP_WINDOWS.index(16)].tracker
+        ids = [sorted(t.map.kf_frame_id[t.map.kf_valid].tolist()) for t in (w16, ref.tracker)]
+        gap = max(float(np.abs(a - b).max()) for (_, a), (_, b) in
+                  zip(w16.export_trajectory(), ref.tracker.export_trajectory()))
+        for r in rows:
+            print(f"[18d] ba_window_sweep n_local {r['n_local']}: {json.dumps(r)} ({card})")
+        print(f"[18d] {len(SWEEP_WINDOWS)} windows over {SWEEP_FRAMES} frames (default 16 / "
+              f"32 / 64 over 700) in {sweep_s:.1f} s; the window-16 row against cli.run of "
+              f"the same frames at the yaml's settings: keyframe ids equal: {ids[0] == ids[1]} "
+              f"({len(ids[0])} live), poses within {gap:.2e} (bound {SWEEP_POSE_ATOL:g}); "
+              f"launches {launches}")
+        _check(len(systems) == len(SWEEP_WINDOWS), f"[18d] {len(systems)} Systems")
+        for s, row in enumerate(rows):
+            frames = [(pg, po) for k, pg, po in per_frame if k == s]
+            _check(len(frames) == SWEEP_FRAMES and frames[0] == (3, 0)
+                   and all(x == (3, 2) for x in frames[1:]),
+                   f"[18d] window {row['n_local']}: launches per frame {frames}")
+            _check(row["lost_frames"] == 0 and row["loops"] == 0, f"[18d] row {row}")
+            _check(row["ate_pairs"] == SWEEP_FRAMES and np.isfinite(row["ate_rmse_m"]),
+                   f"[18d] row {row}")
+        _check(ids[0] == ids[1], f"[18d] keyframe ids {ids}")
+        _check(gap <= SWEEP_POSE_ATOL, f"[18d] window 16 vs cli.run poses {gap}")
+        out["ba_window_sweep"] = {"rows": rows, "frames": SWEEP_FRAMES, "sweep_s": sweep_s,
+                                  "keyframe_frame_ids_equal_cli_run": ids[0] == ids[1],
+                                  "pose_gap_vs_cli_run": gap, "launches": launches}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[18] took {out['phase_s']:.1f} s")
+    return out
+
+
 def _bins(angle: np.ndarray) -> np.ndarray:
     return np.round(np.mod(angle, 2 * np.pi) * (30 / (2 * np.pi))).astype(int) % 30
 
@@ -2483,10 +2793,14 @@ def main() -> int:
     par = _parallel_phase(dev, card)
     print(f"[16] phases 1-16 took {time.perf_counter() - t_run:.1f} s, the kernels' build "
           "included")
-    # last: a process that has traced the card runs slower afterwards
+    # [18] reads [15b]'s ring from memory, and runs before [17]: a
+    # process that has traced the card runs slower afterwards
+    tools_stats = _offline_tools_phase(dev, card, loop_stats.pop("ring"))
+    print(f"[18] phases 1-16 and 18 took {time.perf_counter() - t_run:.1f} s, the kernels' "
+          "build included")
     live_stats = _kitti_live_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[17] phases 1-17 took {run_s:.1f} s, the kernels' build included")
+    print(f"[17] phases 1-18 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -2520,7 +2834,10 @@ def main() -> int:
                              "kitti_loop": loop_stats["launches"],
                              "dryrun_multichip": par["dryrun"]["launches"],
                              "kitti_multi_seq": par["multi_seq"]["launches"],
-                             "kitti_live": live_stats["launches"]},
+                             "kitti_live": live_stats["launches"],
+                             "build_vocab": tools_stats["build_vocab"]["launches"],
+                             "vocab_recall": tools_stats["vocab_recall"]["launches"],
+                             "ba_window_sweep": tools_stats["ba_window_sweep"]["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -2541,6 +2858,7 @@ def main() -> int:
         "kitti_multi_seq": {k: v for k, v in par["multi_seq"].items() if k != "launches"},
         "two_ranks": par["two_ranks"],
         "kitti_live": {k: v for k, v in live_stats.items() if k != "launches"},
+        "offline_tools": tools_stats,
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

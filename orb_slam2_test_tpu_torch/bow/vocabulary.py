@@ -10,10 +10,11 @@ descriptors; the distances are exact integer popcounts.
 The arrays stay numpy in the dataclass (the file formats) and go to a
 device once, at the first `on(device)` (the Tracker attaches the
 vocabulary to its device); descriptors there are int32 bit patterns.
-Building (hierarchical binary k-means, numpy with a seeded
+Building the tree (hierarchical binary k-means, numpy with a seeded
 `default_rng`, as DBoW2's `create` does offline) and the file formats
 (a compact npz, and DBoW2's text format for parity with ORBvoc.txt)
-are host code.
+are host code; the idf weights `transform` the training set on a
+device.
 """
 
 from __future__ import annotations
@@ -117,14 +118,15 @@ def _binary_kmeans(bits: np.ndarray, k: int, rng: np.random.Generator, iters: in
     return cent, d.argmin(1)
 
 
-def build_vocabulary(
+def build_tree(
     train_desc: np.ndarray,  # [N, 8] uint32 (or int32 bit patterns)
     k: int = 10,
     depth: int = 4,
     seed: int = 0,
 ) -> Vocabulary:
-    """Hierarchical binary k-means (DBoW2::create). `depth` counts levels
-    of internal splits; the number of words is at most k^depth."""
+    """Hierarchical binary k-means (DBoW2::create), host numpy: the tree,
+    every word weighted 1. `depth` counts levels of internal splits; the
+    number of words is at most k^depth."""
     train_desc = np.ascontiguousarray(train_desc).view(np.uint32)
     rng = np.random.default_rng(seed)
     bits = _unpack(train_desc)
@@ -162,7 +164,7 @@ def build_vocabulary(
     leaves = np.nonzero(is_leaf)[0]
     leaf_word[leaves] = np.arange(len(leaves), dtype=np.int32)
 
-    voc = Vocabulary(
+    return Vocabulary(
         node_desc=_pack(np.stack(node_desc)),
         node_children=children,
         node_is_leaf=is_leaf,
@@ -171,11 +173,18 @@ def build_vocabulary(
         k=k,
         depth=depth,
     )
-    # idf weights from the training set (documents = chunks of ~1000
-    # descriptors, approximating per-image document statistics)
-    words, _ = transform(voc, torch.from_numpy(train_desc.view(np.int32)),
-                         torch.ones(len(train_desc), dtype=torch.bool))
-    words = words.numpy()
+
+
+def idf_weights(voc: Vocabulary, train_desc: np.ndarray,
+                device: torch.device | str = "cuda") -> np.ndarray:
+    """idf weights of voc's words from the training set: documents are
+    chunks of ~1000 descriptors, approximating per-image statistics. The
+    descriptors' `transform` runs on `device`."""
+    train_desc = np.ascontiguousarray(train_desc).view(np.uint32)
+    desc = torch.from_numpy(train_desc.view(np.int32)).to(device)
+    words, _ = transform(voc, desc, torch.ones(len(train_desc), dtype=torch.bool,
+                                                device=desc.device))
+    words = words.cpu().numpy()
     n_docs = max(len(train_desc) // 1000, 1)
     doc_ids = np.minimum(np.arange(len(train_desc)) // 1000, n_docs - 1)
     n_i = np.zeros(voc.n_words, np.float32)
@@ -184,7 +193,20 @@ def build_vocabulary(
         uw = uw[uw >= 0]
         n_i[uw] += 1.0
     idf = np.log(n_docs / np.maximum(n_i, 1.0)) + 1e-3
-    voc.word_weight = idf.astype(np.float32)
+    return idf.astype(np.float32)
+
+
+def build_vocabulary(
+    train_desc: np.ndarray,  # [N, 8] uint32 (or int32 bit patterns)
+    k: int = 10,
+    depth: int = 4,
+    seed: int = 0,
+    device: torch.device | str = "cuda",
+) -> Vocabulary:
+    """`build_tree`, then `idf_weights` on `device` (the card unless the
+    caller asks for another)."""
+    voc = build_tree(train_desc, k, depth, seed)
+    voc.word_weight = idf_weights(voc, train_desc, device)
     return voc
 
 

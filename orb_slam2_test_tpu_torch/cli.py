@@ -31,6 +31,15 @@ own Systems, with a joint distributed BA over their maps every
 (examples/dist_ba_scaling.py: the distributed BA's strong scaling on
 map checkpoints or a synthetic problem).
 
+The offline tools (`tools/`, the JAX package's examples of the same
+names): `make_synth_data` KIND --out DIR writes a synthetic KITTI / TUM
+mono / TUM RGB-D / EuRoC dataset with its settings and ground truth;
+`build_vocab` trains and packages a vocabulary from the port's own
+extractor (default --out runs/vocab/vocab_k10_L5.npz); `vocab_recall`
+DATASET --vocab PATH ... measures top-1 / top-5 place-recognition
+recall; `ba_window_sweep` DATASET measures ATE and time against the
+local-BA window.
+
 The engine runs on the card (--device cuda, the default) and raises
 without one; --device cpu runs it on the CPU. Reading image files needs
 OpenCV and reading a settings file PyYAML, both imported only then.
@@ -74,6 +83,12 @@ from orb_slam2_test_tpu_torch.parallel.multi_map import (
     measure_scaling_problem,
 )
 from orb_slam2_test_tpu_torch.system import MONOCULAR, RGBD, STEREO, System
+from orb_slam2_test_tpu_torch.tools import (
+    ba_window_sweep,
+    build_vocab,
+    make_synth_data,
+    vocab_recall,
+)
 from orb_slam2_test_tpu_torch.utils.profiling import device_trace, profiler
 from orb_slam2_test_tpu_torch.viz.ar import (
     draw_ar_frame,
@@ -90,6 +105,8 @@ DATASETS = {
     "rgbd_tum": RGBD,
 }
 LIVE = {"live_mono": MONOCULAR, "live_stereo": STEREO, "live_rgbd": RGBD}
+TOOLS = {"make_synth_data": make_synth_data, "build_vocab": build_vocab,
+         "vocab_recall": vocab_recall, "ba_window_sweep": ba_window_sweep}
 PREFETCH_DEPTH = 3
 
 
@@ -699,7 +716,8 @@ def add_dist_ba_scaling_args(p: argparse.ArgumentParser) -> argparse.ArgumentPar
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
+def build_parser() -> argparse.ArgumentParser:
+    """The parser of every subcommand."""
     p = argparse.ArgumentParser(
         prog="python -m orb_slam2_test_tpu_torch.cli", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -715,7 +733,16 @@ def main(argv: list[str] | None = None) -> int:
     add_ar_args(sub.add_parser("ar"))
     add_multi_seq_args(sub.add_parser("multi_seq"))
     add_dist_ba_scaling_args(sub.add_parser("dist_ba_scaling"))
-    args = p.parse_args(argv)
+    for name, tool in TOOLS.items():
+        tool.add_args(sub.add_parser(name, description=tool.__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter))
+    return p
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.command in TOOLS:
+        return TOOLS[args.command].main(args)
     if args.command == "multi_seq":
         return multi_seq_main(args)
     if args.command == "dist_ba_scaling":

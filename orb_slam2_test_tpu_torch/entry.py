@@ -923,8 +923,9 @@ class OutAndBackScene(NamedTuple):
 def out_and_back_scene(rng: np.random.Generator, n_frames: int = 120,
                        device: torch.device | str = "cuda") -> OutAndBackScene:
     """Render the ring (rng as the JAX test's fixture: default_rng(0))
-    and train its vocabulary; the ORB extraction for the vocabulary runs
-    on `device` (the card unless the caller asks for another)."""
+    and train its vocabulary; the ORB extraction and the idf pass of the
+    vocabulary run on `device` (the card unless the caller asks for
+    another)."""
     from orb_slam2_test_tpu_torch.bow.vocabulary import build_vocabulary
     from orb_slam2_test_tpu_torch.utils.synthetic import (
         _landmark_patches,
@@ -963,7 +964,7 @@ def out_and_back_scene(rng: np.random.Generator, n_frames: int = 120,
         f = build_frame_mono(_to_device(img.astype(np.float32), device), 0.0, cam,
                              n_features=OUT_AND_BACK_CFG["n_features"])
         descs.append(f.desc.cpu().numpy().view(np.uint32)[f.valid.cpu().numpy()])
-    voc = build_vocabulary(np.concatenate(descs), k=10, depth=4, seed=0)
+    voc = build_vocabulary(np.concatenate(descs), k=10, depth=4, seed=0, device=device)
     return OutAndBackScene(cam=cam, poses=poses, images=images, depths=depths, vocabulary=voc)
 
 

@@ -8,8 +8,8 @@ and `synthetic_ba_problem`), with the port's camera and `se3_exp`:
 random 3D landmarks rendered as textured planar quads, seen from known
 camera trajectories. Rendering is NumPy on the host;
 `render_loop_stereo` renders a long stereo loop in a process pool into
-memory (the counterpart of examples/make_synth_data.py's `kitti`, which
-writes PNG files).
+memory (the frames that tools/make_synth_data.py's `kitti` writes as PNG
+files, as examples/make_synth_data.py does).
 """
 
 from __future__ import annotations
@@ -389,6 +389,15 @@ def _render_loop_chunk(job) -> tuple[int, np.ndarray]:
     return lo, out
 
 
+def loop_chunk_jobs(n_frames: int, cam: PinholeCamera, radius: float, revolutions: float,
+                    n_landmarks: int, seed: int) -> list:
+    """`_render_loop_chunk`'s jobs for the seeded stereo loop: chunks of
+    at most 16 frames, the right camera at cam.bf / cam.fx."""
+    bounds = list(range(0, n_frames, 16)) + [n_frames]
+    return [(lo, hi, n_frames, radius, revolutions, n_landmarks, seed, cam, cam.bf / cam.fx)
+            for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
 def render_loop_stereo(
     n_frames: int,
     cam: PinholeCamera,
@@ -398,20 +407,17 @@ def render_loop_stereo(
     seed: int = 0,
     workers: int = 1,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """The stereo loop sequence that examples/make_synth_data.py's
-    `kitti` writes as PNG files (one lap of radius `radius` per
+    """The stereo loop sequence that tools/make_synth_data.py's `kitti`
+    writes as PNG files (one lap of radius `radius` per
     n_frames / revolutions frames, `n_landmarks` quads, the right camera
     at cam.bf / cam.fx), rendered into memory: (poses [n, 4, 4] Tcw,
     images [n, 2, H, W] uint8, left then right). With workers > 1 a
     pool of spawned processes renders chunks of at most 16 frames, each
     worker rebuilding the scene from the seed, and every worker is
     joined before this returns."""
-    baseline = cam.bf / cam.fx
     poses = make_loop_trajectory(n_frames, radius, revolutions)
     images = np.empty((n_frames, 2, cam.height, cam.width), np.uint8)
-    bounds = list(range(0, n_frames, 16)) + [n_frames]
-    jobs = [(lo, hi, n_frames, radius, revolutions, n_landmarks, seed, cam, baseline)
-            for lo, hi in zip(bounds[:-1], bounds[1:])]
+    jobs = loop_chunk_jobs(n_frames, cam, radius, revolutions, n_landmarks, seed)
     if workers > 1:
         import multiprocessing as mp
         from concurrent.futures import ProcessPoolExecutor

@@ -68,7 +68,8 @@ def built():
     for n, k, depth, seed in ((2000, 5, 3, 0), (800, 10, 4, 3), (300, 4, 1, 7)):
         train = _random_desc(rng, n)
         out.append((train, jvoc.build_vocabulary(train, k=k, depth=depth, seed=seed),
-                    tvoc.build_vocabulary(train, k=k, depth=depth, seed=seed)))
+                    tvoc.build_vocabulary(train, k=k, depth=depth, seed=seed,
+                                          device="cpu")))
     return out
 
 
@@ -78,7 +79,7 @@ def test_build_vocabulary_matches_jax(built, i):
     _assert_same_vocabulary(tv, jv)
     # int32 bit patterns (the port's descriptor layout) build the same tree
     again = tvoc.build_vocabulary(train.view(np.int32), k=jv.k, depth=jv.depth,
-                                  seed=(0, 3, 7)[i])
+                                  seed=(0, 3, 7)[i], device="cpu")
     _assert_same_vocabulary(again, jv)
 
 

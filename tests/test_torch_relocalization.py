@@ -248,7 +248,7 @@ def blackout():
         f = build_frame_mono(torch.from_numpy(np.asarray(img, np.float32)), 0.0, cam,
                              n_features=400)
         descs.append(f.desc[f.valid].numpy())
-    voc = tvoc.build_vocabulary(np.concatenate(descs), k=10, depth=4, seed=0)
+    voc = tvoc.build_vocabulary(np.concatenate(descs), k=10, depth=4, seed=0, device="cpu")
     return cam, poses, images, depths, voc
 
 

@@ -128,7 +128,8 @@ def test_port_never_imports_jax():
                 "solvers.ba_core", "engine.loop_closing", "parallel", "parallel.dist_ba",
                 "parallel.multi_map", "parallel.multihost", "io.live", "utils.profiling",
                 "viz", "viz.live_viewer", "viz.map_drawer", "viz.frame_drawer", "viz.viewer",
-                "viz.ar"):
+                "viz.ar", "tools", "tools.make_synth_data", "tools.build_vocab",
+                "tools.vocab_recall", "tools.ba_window_sweep"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
     assert has_yaml == "False" and has_cv2 == "False" and has_mpl == "False"

@@ -350,7 +350,7 @@ def test_cli_vocabulary_options(recipe, tmp_path):
     assert p.parse_args([settings, d, "--no-vocabulary"]).vocabulary is None
     train = np.random.default_rng(0).integers(0, 2**32, (500, 8), dtype=np.uint32)
     path = str(tmp_path / "small.npz")
-    tvoc.save_vocabulary_npz(tvoc.build_vocabulary(train, k=4, depth=2), path)
+    tvoc.save_vocabulary_npz(tvoc.build_vocabulary(train, k=4, depth=2, device="cpu"), path)
     args = p.parse_args([settings, d, "--vocabulary", path])
     system = System(settings, "monocular", vocabulary=args.vocabulary, device="cpu")
     assert system.tracker.loop_closer.voc is system.vocabulary
