@@ -135,6 +135,7 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    every global BA chunk and apply; (c) the first loop's captured map
    and Sim3 through `_correct_loop_device` and one global BA chunk on
    the card and on the CPU port: live poses within CORRECT_POSE_ATOL,
+   the card's correction again from the same inputs equal to its first,
    links >= 99% equal, points within CORRECT_PT_ATOL on >= 99%, the
    chunk's poses within GBA_POSE_ATOL; (d) both again under
    torch.cuda.set_sync_debug_mode("error") (no host sync);
@@ -212,7 +213,37 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    frame and 3 + 2 on every other, 0 lost, 0 loops; the window-16 row's
    keyframe ids equal to `cli.run`'s on the same frames at the dataset's
    settings, its poses within SWEEP_POSE_ATOL. Each reduced size is
-   printed beside its default.
+   printed beside its default;
+19. the six dataset commands from files (run after 18 and before 17):
+   (a) `make_synth_data` writes the EuRoC, KITTI, TUM mono and TUM RGB-D
+   datasets of the JAX package's recorded runs, cut to their first
+   DRIVER_DATA frames at the full runs' step per frame (TUM with its
+   5-frame blackout moved to frame 40), in processes of their own at
+   once; (b) mono_euroc, stereo_euroc (identity LEFT.* / RIGHT.* blocks
+   through `StereoRectifier`), mono_kitti, stereo_kitti, mono_tum and
+   rgbd_tum through `cli.main` on the card with the default vocabulary
+   (tools/dataset_runs.run_driver): LOST on exactly the blank frames
+   (mono_euroc may also lose from DRIVER_LOST_FROM, as both packages do
+   on the CPU), 1 relocalization on the frame after them within the ATE
+   ceiling of the truth, the ATE finite and below DRIVER_ATE_M, kernel
+   1 launched 1 (mono, RGB-D) or 3 (stereo) times on every frame and
+   kernel 2 at least twice on every tracked and relocalizing frame; the
+   first DRIVER_CPU_FRAMES frames again on the card and on the CPU port,
+   which reads the card's BRIEF angles and descriptors (_OrbTape): the
+   CPU's patches the card's within PATCH_RAW_ATOL, every bit the card's
+   bf16 selection flips against the CPU's float32 one a near-tie of its
+   taps (FLIP_TIE_RATIO, as [18b]), each of the card's pose
+   optimizations again through the plain version on the CPU from the
+   same inputs within [3]'s bounds, equal states, and poses within
+   [12]'s 1e-3 or, where they lie beyond it, DRIVER_SPREAD_FACTOR times
+   the CPU port's own spread between 1 thread and its default count;
+   (c) a 752x480 frame with configs/EuRoC.yaml's distortion on
+   the card and the CPU: keypoints equal, undistorted uv within
+   UNDISTORT_ATOL_PX; (d) a pair rectified with configs/EuRoC.yaml's real
+   blocks, its stereo frame on the card and on the CPU with the card's
+   descriptors: keypoints equal, right u within STEREO_UR_ATOL_PX on
+   STEREO_UR_SHARE of the stereo matches either device makes, the flips
+   near-ties.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -221,6 +252,7 @@ line is the JSON object {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -996,9 +1028,8 @@ def _kitti_loop_phase(dev, card: str) -> dict:
     A, B = entry.map_to_numpy(card_m), entry.map_to_numpy(cpu_m)
     live = A["kf_valid"]
     pose_gap = float(np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max())
-    # the card against itself from the same inputs (its index adds by
-    # atomics sum in another order on each run): how far rounding alone
-    # moves this correction
+    # the card against itself from the same inputs: the pose graph sums
+    # in a fixed order (solvers/pose_graph._index_add), so nothing moves
     again_T = lc._correct_loop_device(cam, m0, kf_id, cand, S12, fix).kf_Tcw.cpu().numpy()
     self_gap = float(np.abs(again_T[live] - A["kf_Tcw"][live]).max())
     links = float((A["kf_pt_idx"][live] == B["kf_pt_idx"][live]).mean())
@@ -1029,6 +1060,7 @@ def _kitti_loop_phase(dev, card: str) -> dict:
           f"card {float(g_card[2]):.1f} / CPU {float(g_cpu[2]):.1f}; "
           f"{time.perf_counter() - t0:.1f} s")
     _check(pose_gap <= CORRECT_POSE_ATOL, f"[15c] correction poses {pose_gap}")
+    _check(self_gap == 0.0, f"[15c] the card's correction moved {self_gap} between runs")
     _check(links >= CORRECT_LINKS_MIN, f"[15c] correction links {links}")
     _check(pt_share >= 0.99, f"[15c] correction points {pt_share}")
     _check(gba_gap <= GBA_POSE_ATOL, f"[15c] global BA chunk poses {gba_gap}")
@@ -1912,25 +1944,24 @@ SWEEP_FRAMES = 80  # [18d]: 20 keyframes at [15b]'s cadence, more than the 16-wi
 SWEEP_POSE_ATOL = 1e-3  # [18d]: the window-16 row vs cli.run, both on the card
 
 
-def _tap_tie_ratio(raw, angle) -> np.ndarray:
-    """[N, 256] |a - b| / (|a| + |b|) of each BRIEF bit's two blurred taps
-    in float32, in the bin of each keypoint's angle, from its raw
-    [N, 38, 38] CPU patches (`ops.patches.orb_from_patches`'s float32
-    path)."""
+def _flip_tie_ratio(raw, bins: np.ndarray, flipped: np.ndarray) -> np.ndarray:
+    """|a - b| / (|a| + |b|) of each flipped BRIEF bit's two blurred taps
+    in float32 (`ops.patches.orb_from_patches`'s CPU path): raw [N, 38,
+    38] CPU patches, bins [N] the angle bin whose pattern was read,
+    flipped [N, 256] bool. One value per flipped bit."""
     import torch
 
-    from orb_slam2_test_tpu_torch.ops import patches
+    from orb_slam2_test_tpu_torch.ops import brief, patches
 
     n = raw.shape[0]
-    _, A, AT, D = patches._operators(raw.device, torch.float32)
+    _, A, AT, _ = patches._operators(raw.device, torch.float32)
     blurred = ((A @ raw) @ AT).reshape(n, -1)
     blurred = blurred - blurred.mean(dim=1, keepdim=True)
-    shape = (n, patches.N_ANGLE_BINS, patches.N_BITS)
-    rows = torch.arange(n)
-    bins = torch.from_numpy(_bins(angle.numpy()))
-    diff = (blurred @ D).reshape(shape)[rows, bins].abs()
-    mag = (blurred.abs() @ D.abs()).reshape(shape)[rows, bins]
-    return (diff / mag.clamp(min=1e-30)).numpy()
+    r, k = np.nonzero(flipped)
+    taps = torch.from_numpy(brief._binned_pattern_indices()[bins[r], k].astype(np.int64))
+    rows = torch.from_numpy(r)
+    ta, tb = blurred[rows, taps[:, 0]], blurred[rows, taps[:, 1]]
+    return ((ta - tb).abs() / (ta.abs() + tb.abs()).clamp(min=1e-30)).numpy()
 
 
 def _tool_args(argv: list):
@@ -2053,7 +2084,8 @@ def _offline_tools_phase(dev, card: str, ring) -> dict:
         # each flipped bit must be a near-tie of the float32 selection: the
         # card rounds both blurred taps to bf16 (unit roundoff 2^-8), so a
         # sign can change only where |a - b| <= 2^-8 (|a| + |b|)
-        ratio = _tap_tie_ratio(raw_cpu[0], f_cpu.angle)[valid][same_bin][flipped]
+        rows = torch.from_numpy(valid.nonzero()[0][same_bin])
+        ratio = _flip_tie_ratio(raw_cpu[0][rows], _bins(card_np[4][valid][same_bin]), flipped)
         ratio_max = float(ratio.max(initial=0.0))
         desc = np.concatenate(summary["frames"])
         cpu_voc = build_vocabulary(desc, k=10, depth=VOCAB_DEPTH, seed=0, device="cpu")
@@ -2182,6 +2214,425 @@ def _offline_tools_phase(dev, card: str, ring) -> dict:
                                   "pose_gap_vs_cli_run": gap, "launches": launches}
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[18] took {out['phase_s']:.1f} s")
+    return out
+
+
+# [19]: the six dataset commands on datasets written as files, on the
+# card, at cut lengths: the first frames of the JAX package's recorded
+# runs (the same scene and step per frame), TUM with its 5-frame
+# blackout moved from frame 300 of 360 to 40 of 60
+DRIVER_DATA = {"euroc": (60, None), "kitti": (40, None), "tum-mono": (60, 40),
+               "tum-rgbd": (60, 40)}
+# the ATE ceilings, which also bound the relocalized frame's distance
+# from the truth: twice the port's CPU rehearsal of the same cuts (0.566,
+# 0.407, 0.035, 0.056, 0.885, 0.458 m; PERF.md §5), set before the
+# card's first run of [19]
+DRIVER_ATE_M = {"mono_euroc": 1.2, "stereo_euroc": 0.8, "mono_kitti": 0.1,
+                "stereo_kitti": 0.12, "mono_tum": 1.8, "rgbd_tum": 0.9}
+# mono_euroc loses track in the last frames of its 60-frame cut: on the
+# card (58-59; at full length it stays LOST to frame 265, until the loop
+# revisits its start), on the CPU port (57-59) and in the JAX package on
+# the CPU (examples/mono_euroc.py on the same files: LOST from 53, at full
+# length to 264). The lost frames [19b] accepts beyond the blank ones
+# start here (ROADMAP queue 3)
+DRIVER_LOST_FROM = {"mono_euroc": 53}
+DRIVER_CPU_FRAMES = 5  # the first frames again, on the card and on the CPU port
+# the card against the CPU port over the frames both track, the CPU port
+# reading the card's own BRIEF angles and descriptors (_OrbTape): [12]'s
+# bound or, where the card lies beyond it, DRIVER_SPREAD_FACTOR times the
+# CPU port's own spread at a fixed precision, its run at 1 thread against
+# its run at the default count (another summation order). On these
+# scenes that alone moves the poses by up to 8.3e-3 within 5 frames
+# (rgbd_tum; stereo_euroc 3.4e-3; PERF.md §6), where the card sits
+# 8.8e-3 / 1.0e-3 from the CPU
+DRIVER_POSE_ATOL = 1e-3
+DRIVER_SPREAD_FACTOR = 2.0
+# each pose optimization of the card's run again on the CPU through the
+# plain version from the same inputs: [3]'s bounds
+POSE_CALL_ATOL = 1e-4
+POSE_CALL_AGREE = 0.99
+# a bit the card's bf16 selection flips against the CPU's float32 one is
+# a near-tie of the float32 taps: both taps are rounded to bf16 (unit
+# roundoff 2^-8), as [18b] holds
+FLIP_TIE_RATIO = 2.0**-8
+# the CPU's patches against the card's of the same frame, grey levels:
+# the same keypoints, the pyramid's rounding apart
+PATCH_RAW_ATOL = 1e-2
+UNDISTORT_ATOL_PX = 1e-3
+# [19d]: right u within 1e-3 px on 99% of the stereo matches either
+# device makes (the stereo_match tolerance, PERF.md §6)
+STEREO_UR_ATOL_PX = 1e-3
+STEREO_UR_SHARE = 0.99
+# kernel 1's launches per frame of each sensor
+GATHERS_PER_FRAME = {"mono": 1, "rgbd": 1, "stereo": 3}
+
+
+def _sensor(driver: str) -> str:
+    return driver.split("_")[0]
+
+
+def _trajectory_gap(a_path: str, b_path: str) -> tuple[float, int]:
+    """The largest Tcw entry gap over the timestamps both trajectories
+    hold, and their count."""
+    from orb_slam2_test_tpu_torch.io.trajectory import load_trajectory_tum
+
+    a = {round(t, 6): T for t, T in load_trajectory_tum(a_path)}
+    b = {round(t, 6): T for t, T in load_trajectory_tum(b_path)}
+    both = sorted(set(a) & set(b))
+    gap = max((float(np.abs(np.linalg.inv(a[t]) - np.linalg.inv(b[t])).max()) for t in both),
+              default=float("inf"))
+    return gap, len(both)
+
+
+@contextlib.contextmanager
+def _in_place_of(module, name: str, fn):
+    """module.name is fn inside the block."""
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+class _OrbTape:
+    """`ops.extractor`'s orb_from_patches, recorded on the card and
+    replayed on the CPU. `record()`: each call's patches, angles and
+    descriptors, copied to the host. `replay()`: call by call, the
+    card's angles and descriptors in place of the CPU's, for the CPU's
+    own patches, which must be the card's within PATCH_RAW_ATOL; the
+    CPU's float32 selection runs beside them, and each bit that it reads
+    otherwise in the same angle bin is kept with its tie ratio."""
+
+    def __init__(self):
+        self.calls = []
+        self.raw_gap = 0.0
+        self.bits = 0
+        self.bin_changes = 0
+        self.ratios = [np.zeros(0, np.float32)]
+
+    def record(self):
+        from orb_slam2_test_tpu_torch.ops import extractor, patches
+
+        def orb(raw):
+            angle, desc = patches.orb_from_patches(raw)
+            self.calls.append((raw.cpu(), angle.cpu(), desc.cpu()))
+            return angle, desc
+        return _in_place_of(extractor, "orb_from_patches", orb)
+
+    @contextlib.contextmanager
+    def replay(self):
+        import torch
+
+        from orb_slam2_test_tpu_torch.ops import extractor, patches
+
+        calls = iter(self.calls)
+
+        def orb(raw):
+            raw_card, angle, desc = next(calls)
+            _check(raw.shape == raw_card.shape,
+                   f"replay: patches {tuple(raw.shape)} on the CPU, {tuple(raw_card.shape)} "
+                   f"on the card")
+            self.raw_gap = max(self.raw_gap, float((raw - raw_card).abs().max()))
+            cpu_angle, cpu_desc = patches.orb_from_patches(raw)
+            bins = _bins(angle.numpy())
+            same = bins == _bins(cpu_angle.numpy())
+            flipped = np.unpackbits((desc.numpy() ^ cpu_desc.numpy()).view(np.uint8), axis=1,
+                                    bitorder="little")[same].astype(bool)
+            rows = torch.from_numpy(same.nonzero()[0])
+            self.ratios.append(_flip_tie_ratio(raw[rows], bins[same], flipped))
+            self.bits += flipped.size
+            self.bin_changes += int((~same).sum())
+            return angle, desc
+        with _in_place_of(extractor, "orb_from_patches", orb):
+            yield self
+        _check(next(calls, None) is None, "replay: fewer calls on the CPU than on the card")
+
+    def check(self, tag: str) -> dict:
+        """The replays' figures, after their checks: the patches within
+        PATCH_RAW_ATOL, every flipped bit a near-tie."""
+        ratios = np.concatenate(self.ratios)
+        r = {"calls": len(self.calls), "patch_gap": self.raw_gap, "bits": self.bits,
+             "flipped_bits": int(ratios.size), "bin_changes": self.bin_changes,
+             "flip_tie_ratio_max": float(ratios.max(initial=0.0))}
+        _check(r["patch_gap"] <= PATCH_RAW_ATOL,
+               f"{tag} the CPU's patches {r['patch_gap']} from the card's")
+        _check(r["flip_tie_ratio_max"] <= FLIP_TIE_RATIO,
+               f"{tag} a flipped bit {r['flip_tie_ratio_max']} away from a tie of the float32 "
+               f"taps")
+        return r
+
+    @staticmethod
+    def describe(r: dict) -> str:
+        return (f"the CPU's patches within {r['patch_gap']:.2e} of the card's over {r['calls']} "
+                f"calls (bound {PATCH_RAW_ATOL:g}); {r['flipped_bits']} of {r['bits']} bits "
+                f"flipped against the CPU's float32 selection, each a near-tie (largest |a - b| "
+                f"/ (|a| + |b|) {r['flip_tie_ratio_max']:.2e}, bound 2^-8); {r['bin_changes']} "
+                f"angle bin changes")
+
+
+def _pose_opt_calls(calls: list):
+    """The Tracker's pose optimizations inside the block, each call's
+    camera, inputs and result (Tcw, inliers) appended to calls on the
+    host."""
+    from orb_slam2_test_tpu_torch.engine import tracking
+
+    opt = tracking.pose_optimization
+
+    def recorded(cam, *args, **kw):
+        res = opt(cam, *args, **kw)
+        calls.append((cam, [x.cpu() for x in args], kw, res.Tcw.cpu(), res.inliers.cpu()))
+        return res
+    return _in_place_of(tracking, "pose_optimization", recorded)
+
+
+def _pose_opt_replay(calls: list) -> tuple[float, float]:
+    """Each recorded pose optimization again through the plain version
+    on the CPU from the same inputs: the largest Tcw gap and the least
+    share of equal inlier flags."""
+    from orb_slam2_test_tpu_torch.solvers.pose_opt import _pose_optimization_plain
+
+    gap, agree = 0.0, 1.0
+    for cam, args, kw, Tcw, inliers in calls:
+        ref = _pose_optimization_plain(cam, *args, **kw)
+        gap = max(gap, float((ref.Tcw - Tcw).abs().max()))
+        agree = min(agree, float((ref.inliers == inliers).float().mean()))
+    return gap, agree
+
+
+def _distorted_frame(dev, img: np.ndarray, card: str) -> dict:
+    """[19c]: one 752x480 frame built with configs/EuRoC.yaml's Camera
+    block (its radial-tangential distortion) on the card and on the CPU:
+    keypoints equal, undistorted uv within UNDISTORT_ATOL_PX."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.engine.frame import build_frame_mono
+    from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+    from orb_slam2_test_tpu_torch.io.settings import _parse_opencv_yaml
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                           "EuRoC.yaml")) as f:
+        raw = _parse_opencv_yaml(f.read())
+    cam = PinholeCamera(**{k: float(raw[f"Camera.{k}"])
+                           for k in ("fx", "fy", "cx", "cy", "k1", "k2", "p1", "p2")},
+                        width=int(raw["Camera.width"]), height=int(raw["Camera.height"]))
+    _check(cam.has_distortion and img.shape == (cam.height, cam.width),
+           f"[19c] camera {cam}, image {img.shape}")
+    _zero_launches()
+    f_card = build_frame_mono(torch.from_numpy(img).to(dev), 0.0, cam)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    f_cpu = build_frame_mono(torch.from_numpy(img), 0.0, cam)
+    same = all(torch.equal(getattr(f_card, k).cpu(), getattr(f_cpu, k))
+               for k in ("uv_raw", "level", "valid"))
+    valid = f_cpu.valid
+    gap = float((f_card.uv.cpu() - f_cpu.uv)[valid].abs().max())
+    moved = float((f_cpu.uv - f_cpu.uv_raw)[valid].norm(dim=-1).max())
+    print(f"[19c] a 752x480 EuRoC frame with configs/EuRoC.yaml's distortion (k1 {cam.k1}, k2 "
+          f"{cam.k2}, p1 {cam.p1}, p2 {cam.p2}): {int(valid.sum())} keypoints, equal to the CPU "
+          f"port's {same}; undistorted uv within {gap:.3e} px of the CPU's (bound "
+          f"{UNDISTORT_ATOL_PX:g}); undistortion moves keypoints up to {moved:.1f} px; launches "
+          f"{launches}")
+    _check(same, "[19c] the distorted frame's keypoints differ from the CPU port's")
+    _check(gap <= UNDISTORT_ATOL_PX, f"[19c] undistorted uv {gap} px from the CPU's")
+    _check(moved > 1.0, f"[19c] undistortion moved the keypoints by {moved} px only")
+    _check(launches == {"patch_gather": 1, "pose_opt": 0}, f"[19c] launches {launches}")
+    return {"keypoints": int(valid.sum()), "uv_gap_px": gap, "moved_px": moved}
+
+
+def _rectified_pair(dev, left: np.ndarray, right: np.ndarray) -> dict:
+    """[19d]: one EuRoC pair rectified with configs/EuRoC.yaml's real
+    LEFT.* / RIGHT.* blocks (OpenCV on the host, as the CPU port does it:
+    tests/test_torch_drivers.py holds it equal to the JAX package's),
+    then its stereo frame on the card and on the CPU with the card's
+    descriptors (_OrbTape): keypoints equal, right u within
+    STEREO_UR_ATOL_PX on STEREO_UR_SHARE of the matches either makes."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.engine.frame import build_frame_stereo
+    from orb_slam2_test_tpu_torch.io.datasets import StereoRectifier
+    from orb_slam2_test_tpu_torch.io.settings import load_settings
+
+    s = load_settings(os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs",
+                                   "EuRoC.yaml"))
+    rl, rr = StereoRectifier(s.rectification)(left, right)
+    moved = float(np.abs(rl.astype(np.float32) - left).mean())
+    cam = s.camera
+    kw = dict(n_features=s.n_features, n_levels=s.n_levels, scale_factor=s.scale_factor)
+    tape = _OrbTape()
+    _zero_launches()
+    with tape.record():
+        f_card = build_frame_stereo(torch.from_numpy(rl).to(dev), torch.from_numpy(rr).to(dev),
+                                    0.0, cam, **kw)
+    torch.cuda.synchronize()
+    launches = _launch_counts()
+    with tape.replay():
+        f_cpu = build_frame_stereo(torch.from_numpy(rl), torch.from_numpy(rr), 0.0, cam, **kw)
+    same = all(torch.equal(getattr(f_card, k).cpu(), getattr(f_cpu, k))
+               for k in ("uv_raw", "level", "valid"))
+    ur_card, ur_cpu = f_card.ur.cpu(), f_cpu.ur
+    either = (ur_card >= 0) | (ur_cpu >= 0)
+    agree = (ur_card >= 0) & (ur_cpu >= 0) & ((ur_card - ur_cpu).abs() <= STEREO_UR_ATOL_PX)
+    ur_ok = float(agree[either].float().mean())
+    stereo = (int((ur_card >= 0).sum()), int((ur_cpu >= 0).sum()))
+    rep = tape.check("[19d]")
+    print(f"[19d] an EuRoC pair rectified with configs/EuRoC.yaml's LEFT/RIGHT blocks (mean "
+          f"{moved:.2f} grey levels moved; rectified fx {cam.fx:.3f}, bf {cam.bf:.3f}): stereo "
+          f"frame keypoints equal to the CPU port's {same}, stereo matches {stereo[0]} / "
+          f"{stereo[1]} (card / CPU with the card's descriptors), right u within "
+          f"{STEREO_UR_ATOL_PX:g} px on {ur_ok:.4f} of them (bound {STEREO_UR_SHARE:g}); "
+          f"{_OrbTape.describe(rep)}; launches {launches}")
+    _check(same, "[19d] the rectified pair's keypoints differ from the CPU port's")
+    _check(moved > 1.0 and min(stereo) > 0, f"[19d] moved {moved}, stereo matches {stereo}")
+    _check(ur_ok >= STEREO_UR_SHARE, f"[19d] right u agrees on {ur_ok} of the matches")
+    _check(launches == {"patch_gather": 3, "pose_opt": 0}, f"[19d] launches {launches}")
+    return {"mean_grey_moved": moved, "stereo_matches": stereo, "ur_agreement": ur_ok,
+            "replay": rep}
+
+
+def _dataset_drivers_phase(dev, card: str) -> dict:
+    """[19a]-[19d]: the six dataset commands from files on the card."""
+    import tempfile
+
+    import torch
+
+    from orb_slam2_test_tpu_torch.evaluation import aligned_errors
+    from orb_slam2_test_tpu_torch.io.datasets import load_euroc
+    from orb_slam2_test_tpu_torch.io.trajectory import load_trajectory_tum
+    from orb_slam2_test_tpu_torch.tools import dataset_runs
+
+    t_phase = time.perf_counter()
+    out = {"runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        # -- 19a. the datasets, rendered at once in processes of their own
+        t0 = time.perf_counter()
+        workers = max(1, (os.cpu_count() or 1) - len(DRIVER_DATA) + 1)
+        procs = {kind: dataset_runs.start_dataset(
+            kind, os.path.join(tmp, kind), n, at, workers=workers if kind == "kitti" else 1)
+            for kind, (n, at) in DRIVER_DATA.items()}
+        try:
+            for kind, proc in procs.items():
+                dataset_runs.finish_dataset(proc, kind, os.path.join(tmp, kind), timeout=600)
+        finally:
+            for proc in procs.values():
+                proc.kill()
+        out["datasets_s"] = time.perf_counter() - t0
+        print(f"[19a] datasets written in {out['datasets_s']:.1f} s by make_synth_data "
+              f"processes: " + ", ".join(
+                  f"{k} {n} frames (of {dataset_runs.FULL[k][0]})"
+                  + (f", blank {at}-{at + dataset_runs.BLACKOUT_LEN - 1}" if at else "")
+                  for k, (n, at) in DRIVER_DATA.items()))
+        # -- 19b. each command on the card, its first frames again on the
+        # card and on the CPU port with the card's descriptors
+        for driver, (kind, _) in dataset_runs.DRIVERS.items():
+            data = os.path.join(tmp, kind)
+            n, at = DRIVER_DATA[kind]
+            sensor = _sensor(driver)
+            t0 = time.perf_counter()
+            _zero_launches()
+            r = dataset_runs.run_driver(driver, data, tmp, device=str(dev))
+            wall = time.perf_counter() - t0
+            # the first frames again on each device: a longer run's later
+            # local BAs move its exported early poses
+            tape, opt_calls = _OrbTape(), []
+            with tape.record(), _pose_opt_calls(opt_calls):
+                short = dataset_runs.run_driver(driver, data, tmp, device=str(dev),
+                                                max_frames=DRIVER_CPU_FRAMES,
+                                                tag=f"{driver}_short")
+            opt_gap, opt_agree = _pose_opt_replay(opt_calls)
+            threads = torch.get_num_threads()
+            with tape.replay():
+                cpu = dataset_runs.run_driver(driver, data, tmp, device="cpu",
+                                              max_frames=DRIVER_CPU_FRAMES, tag=f"{driver}_cpu")
+            gap, n_both = _trajectory_gap(short["paths"]["traj.txt"], cpu["paths"]["traj.txt"])
+            # the CPU port's own spread, at 1 thread: the bound reads it
+            # only where the card sits beyond [12]'s
+            spread = None
+            if gap > DRIVER_POSE_ATOL:
+                torch.set_num_threads(1)
+                try:
+                    with tape.replay():
+                        cpu1 = dataset_runs.run_driver(
+                            driver, data, tmp, device="cpu", max_frames=DRIVER_CPU_FRAMES,
+                            tag=f"{driver}_cpu1")
+                finally:
+                    torch.set_num_threads(threads)
+                spread, _ = _trajectory_gap(cpu1["paths"]["traj.txt"], cpu["paths"]["traj.txt"])
+            pose_bound = max(DRIVER_POSE_ATOL, DRIVER_SPREAD_FACTOR * (spread or 0.0))
+            rep = tape.check(f"[19b] {driver}")
+            per_frame = r["launches_per_frame"]
+            totals = tuple(int(x) for x in np.sum(per_frame, axis=0))
+            blank = list(range(at, at + dataset_runs.BLACKOUT_LEN)) if at else []
+            lost_from = DRIVER_LOST_FROM.get(driver, n)
+            ms = np.asarray(r["frame_s"]) * 1e3
+            tracked = [i for i in range(1, n) if r["states"][i] == r["states"][i - 1] == "OK"]
+            kinds = sorted(set(per_frame))
+            times, err, _ = aligned_errors(load_trajectory_tum(r["paths"]["traj.txt"]),
+                                           load_trajectory_tum(os.path.join(
+                                               data, "groundtruth.txt")),
+                                           with_scale=sensor == "mono")
+            before = None
+            if at:
+                early = err[times < r["timestamps"][at]]
+                before = float(early.max()) if early.size else float("nan")
+            row = {"frames": n, "keyframes": r["keyframes"], "lost": r["lost_frames"],
+                   "lost_at": r["lost_at"], "relocs": r["relocs"], "loops": r["loops"],
+                   "ate_m": r["ate_rmse"], "ate_pairs": r["ate_pairs"],
+                   "relocalized": r["relocalized"], "max_err_before_blackout_m": before,
+                   "median_ms": float(np.median(ms)), "p90_ms": float(np.percentile(ms, 90)),
+                   "wall_s": wall, "launches": totals, "launch_kinds": kinds,
+                   "cpu_gap": gap, "cpu_frames_compared": n_both,
+                   "cpu_threads_spread": spread, "cpu_threads": threads, "pose_bound": pose_bound,
+                   "pose_opt_calls": len(opt_calls), "pose_opt_call_gap": opt_gap,
+                   "pose_opt_inlier_agreement": opt_agree, "replay": rep,
+                   "compare_s": time.perf_counter() - t0 - wall,
+                   "states": "".join(s_[0] for s_ in r["states"])}
+            out["runs"][driver] = row
+            print(f"[19b] {driver} on {kind} ({n} frames, {card}): states {row['states']}; "
+                  f"{row['keyframes']} keyframes, {row['lost']} lost at {row['lost_at']}, "
+                  f"{row['relocs']} relocs {row['relocalized']} (frames before the blackout up "
+                  f"to {before} m from the truth), {row['loops']} loops, ATE "
+                  f"{row['ate_m']:.4f} m over {row['ate_pairs']} pairs (ceiling "
+                  f"{DRIVER_ATE_M[driver]}); median {row['median_ms']:.1f}, p90 "
+                  f"{row['p90_ms']:.1f} ms a frame host wall; launches {totals}, per frame "
+                  f"{kinds}; {wall:.1f} s")
+            print(f"    its first {DRIVER_CPU_FRAMES} frames vs the CPU port's with the card's "
+                  f"descriptors: poses within {gap:.3e} over {n_both} frames (the CPU at 1 "
+                  f"against {threads} threads "
+                  f"{'not run' if spread is None else format(spread, '.3e')}; bound "
+                  f"{pose_bound:.3e}); its "
+                  f"{len(opt_calls)} pose optimizations again through the plain version on the "
+                  f"CPU: Tcw within {opt_gap:.2e} (bound {POSE_CALL_ATOL:g}), inliers "
+                  f"{opt_agree:.4f} equal; {_OrbTape.describe(rep)}; {row['compare_s']:.1f} s")
+            _check([i for i in r["lost_at"] if i < lost_from] == blank,
+                   f"[19b] {driver} lost at {r['lost_at']}, blank {blank}")
+            _check(r["relocs"] == len(blank[-1:]) and [x["frame"] for x in r["relocalized"]]
+                   == [b_ + 1 for b_ in blank[-1:]],
+                   f"[19b] {driver} relocs {r['relocs']} {r['relocalized']}")
+            _check(all(x["err_m"] <= DRIVER_ATE_M[driver] for x in r["relocalized"]),
+                   f"[19b] {driver} relocalized {r['relocalized']}")
+            _check(np.isfinite(r["ate_rmse"]) and r["ate_rmse"] <= DRIVER_ATE_M[driver],
+                   f"[19b] {driver} ATE {r['ate_rmse']}")
+            _check(all(pf[0] == GATHERS_PER_FRAME[sensor] for pf in per_frame),
+                   f"[19b] {driver} patch_gather launches per frame {kinds}")
+            _check(all(per_frame[i][1] >= 2 for i in tracked),
+                   f"[19b] {driver} pose_opt launches on tracked frames {kinds}")
+            _check(all(per_frame[x["frame"]][1] >= 2 for x in r["relocalized"]),
+                   f"[19b] {driver} pose_opt launches on the relocalizing frame")
+            _check(short["states"] == cpu["states"] and n_both >= DRIVER_CPU_FRAMES - 2
+                   and gap <= pose_bound,
+                   f"[19b] {driver} card vs CPU: states {short['states']} / {cpu['states']}, "
+                   f"poses {gap} over {n_both} frames")
+            _check(bool(opt_calls) and opt_gap <= POSE_CALL_ATOL and opt_agree >= POSE_CALL_AGREE,
+                   f"[19b] {driver} {len(opt_calls)} pose optimizations vs plain: Tcw {opt_gap}, "
+                   f"inliers {opt_agree}")
+        # -- 19c / 19d. distortion and the real rectification
+        seq = load_euroc(os.path.join(tmp, "euroc"), stereo=True)
+        _, left, right = seq.load(seq.items[0])
+        out["distorted_frame"] = _distorted_frame(dev, left, card)
+        out["rectified_pair"] = _rectified_pair(dev, left, right)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[19] took {out['phase_s']:.1f} s")
     return out
 
 
@@ -2798,9 +3249,12 @@ def main() -> int:
     tools_stats = _offline_tools_phase(dev, card, loop_stats.pop("ring"))
     print(f"[18] phases 1-16 and 18 took {time.perf_counter() - t_run:.1f} s, the kernels' "
           "build included")
+    drivers_stats = _dataset_drivers_phase(dev, card)
+    print(f"[19] phases 1-16, 18 and 19 took {time.perf_counter() - t_run:.1f} s, the "
+          "kernels' build included")
     live_stats = _kitti_live_phase(dev, card)
     run_s = time.perf_counter() - t_run
-    print(f"[17] phases 1-18 took {run_s:.1f} s, the kernels' build included")
+    print(f"[17] phases 1-19 took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -2837,7 +3291,9 @@ def main() -> int:
                              "kitti_live": live_stats["launches"],
                              "build_vocab": tools_stats["build_vocab"]["launches"],
                              "vocab_recall": tools_stats["vocab_recall"]["launches"],
-                             "ba_window_sweep": tools_stats["ba_window_sweep"]["launches"]},
+                             "ba_window_sweep": tools_stats["ba_window_sweep"]["launches"],
+                             **{f"dataset_{k}": v["launches"]
+                                for k, v in drivers_stats["runs"].items()}},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},
@@ -2859,6 +3315,7 @@ def main() -> int:
         "two_ranks": par["two_ranks"],
         "kitti_live": {k: v for k, v in live_stats.items() if k != "launches"},
         "offline_tools": tools_stats,
+        "dataset_drivers": drivers_stats,
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

@@ -76,12 +76,14 @@ from orb_slam2_test_tpu_torch.io.live import (
     SocketSource,
 )
 from orb_slam2_test_tpu_torch.io.trajectory import load_trajectory_tum
+from orb_slam2_test_tpu_torch.ops.patches import PATCH_GATHER
 from orb_slam2_test_tpu_torch.parallel.dist_ba import make_ba_mesh
 from orb_slam2_test_tpu_torch.parallel.multi_map import (
     joint_bundle_adjust,
     measure_scaling,
     measure_scaling_problem,
 )
+from orb_slam2_test_tpu_torch.solvers.pose_opt_cuda import POSE_OPT
 from orb_slam2_test_tpu_torch.system import MONOCULAR, RGBD, STEREO, System
 from orb_slam2_test_tpu_torch.tools import (
     ba_window_sweep,
@@ -130,7 +132,9 @@ def add_common_args(p: argparse.ArgumentParser) -> argparse.ArgumentParser:
                    help="TUM-format ground truth: print the ATE at exit")
     p.add_argument("--diag", default=None, metavar="FILE",
                    help="write per-frame diagnostics (state, match/inlier "
-                        "counts, map occupancy) as JSONL")
+                        "counts, map occupancy, the kernels' launches so far) as JSONL")
+    p.add_argument("--summary-out", default=None, metavar="FILE",
+                   help="write the run's summary (counts, timing, ATE) as JSON")
     add_engine_args(p)
     p.add_argument("--device-trace", default=None, metavar="DIR",
                    help="write a torch.profiler trace of frames 20-40 into DIR")
@@ -247,11 +251,13 @@ def run(system: System, seq: datasets.Sequence, args, log=print) -> dict:
                         system.track_rgbd(data[1], data[2], data[0])
                     t_frame = time.perf_counter() - t_f0
                     if diag_fh is not None:
-                        rec = {"frame": i, "t_frame_s": round(t_frame, 4),
+                        rec = {"frame": i, "timestamp": data[0],
+                               "t_frame_s": round(t_frame, 4),
                                "state": system.tracking_state,
                                "n_kf": tracker.stats["n_kf"], "n_live_kf": tracker.n_live_kf,
                                "cap_kf": tracker.cfg.max_keyframes,
-                               "cap_pt": tracker.cfg.max_points}
+                               "cap_pt": tracker.cfg.max_points,
+                               "launches": [PATCH_GATHER.launches, POSE_OPT.launches]}
                         rec.update((k, v) for k, v in tracker.last_diag.items()
                                    if isinstance(v, (int, float, bool)))
                         diag_fh.write(json.dumps(rec) + "\n")
@@ -754,7 +760,10 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     system = make_system(args, DATASETS[args.command])
     seq = load_sequence(args.command, args, system)
-    run(system, seq, args)
+    summary = run(system, seq, args)
+    if args.summary_out:
+        with open(args.summary_out, "w") as f:
+            json.dump(summary, f)
     return 0
 
 

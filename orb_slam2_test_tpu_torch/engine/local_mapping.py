@@ -21,11 +21,10 @@ import torch
 
 from orb_slam2_test_tpu_torch.engine.frame import FrameData
 from orb_slam2_test_tpu_torch.engine.matchers import (
-    camera_matrix,
     search_by_projection,
     search_for_triangulation,
 )
-from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera, camera_matrix
 from orb_slam2_test_tpu_torch.geometry.triangulation import (
     triangulate_dlt,
     triangulation_checks,

@@ -17,14 +17,13 @@ relative Sim3), use the same ±1 matmul for their pair matrices.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from orb_slam2_test_tpu_torch.engine.frame import FrameData
-from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera, camera_matrix
 from orb_slam2_test_tpu_torch.ops.extractor import top_k_stable
 from orb_slam2_test_tpu_torch.ops.matching import (
     TH_HIGH,
@@ -240,15 +239,6 @@ def match_by_descriptor_to_map(
         feat_pt=feat_pt,
         pt_feat=pt_feat,
         n_matches=(feat_pt >= 0).sum(dtype=torch.int32),
-    )
-
-
-@functools.lru_cache(maxsize=None)
-def camera_matrix(cam: PinholeCamera, device: torch.device) -> torch.Tensor:
-    """The float32 intrinsic matrix K on `device`, uploaded once."""
-    return torch.tensor(
-        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
-        dtype=torch.float32, device=device,
     )
 
 

@@ -3,6 +3,7 @@
 
 from orb_slam2_test_tpu_torch.evaluation.ate import (  # noqa: F401
     absolute_trajectory_error,
+    aligned_errors,
     associate_trajectories,
     relative_pose_error,
     umeyama_alignment,

@@ -14,20 +14,26 @@ from __future__ import annotations
 import numpy as np
 
 
+def _associate(est: list, gt: list, max_dt: float) -> list:
+    """Greedy nearest-timestamp association: [(index in est, index in
+    gt)], in est's order."""
+    gt_t = np.array([t for t, _ in gt])
+    pairs = []
+    used = set()
+    for k, (t, _) in enumerate(est):
+        i = int(np.argmin(np.abs(gt_t - t)))
+        if abs(gt_t[i] - t) <= max_dt and i not in used:
+            used.add(i)
+            pairs.append((k, i))
+    return pairs
+
+
 def associate_trajectories(
     est: list, gt: list, max_dt: float = 0.02
 ) -> list:
     """Greedy nearest-timestamp association of two [(t, T4x4)] lists.
     Returns [(T_est, T_gt)] pairs."""
-    gt_t = np.array([t for t, _ in gt])
-    pairs = []
-    used = set()
-    for t, Te in est:
-        i = int(np.argmin(np.abs(gt_t - t)))
-        if abs(gt_t[i] - t) <= max_dt and i not in used:
-            used.add(i)
-            pairs.append((Te, gt[i][1]))
-    return pairs
+    return [(est[k][1], gt[i][1]) for k, i in _associate(est, gt, max_dt)]
 
 
 def _centers(Ts: np.ndarray, camera_to_world: bool) -> np.ndarray:
@@ -64,6 +70,31 @@ def umeyama_alignment(
     return s, R, t
 
 
+def aligned_errors(
+    est: list,
+    gt: list,
+    with_scale: bool = False,
+    max_dt: float = 0.02,
+    est_camera_to_world: bool = False,
+    gt_camera_to_world: bool = True,
+) -> tuple[np.ndarray, np.ndarray, float]:
+    """absolute_trajectory_error's alignment, pose by pose: the
+    timestamps of est's associated poses, each one's camera-centre error
+    after the alignment (m), and the alignment's scale. Fewer than two
+    pairs align nothing: their errors and the scale are nan."""
+    pairs = _associate(est, gt, max_dt)
+    times = np.array([est[k][0] for k, _ in pairs])
+    if len(pairs) < 2:
+        return times, np.full(len(pairs), np.nan), float("nan")
+    Te = np.stack([est[k][1] for k, _ in pairs])
+    Tg = np.stack([gt[i][1] for _, i in pairs])
+    ce = _centers(Te, est_camera_to_world)
+    cg = _centers(Tg, gt_camera_to_world)
+    s, R, t = umeyama_alignment(ce, cg, with_scale)
+    aligned = s * ce @ R.T + t
+    return times, np.linalg.norm(aligned - cg, axis=1), s
+
+
 def absolute_trajectory_error(
     est: list,
     gt: list,
@@ -77,22 +108,16 @@ def absolute_trajectory_error(
 
     Returns {'rmse', 'mean', 'median', 'max', 'n_pairs', 'scale'}.
     """
-    pairs = associate_trajectories(est, gt, max_dt)
-    if len(pairs) < 2:
-        return {"rmse": float("inf"), "n_pairs": len(pairs)}
-    Te = np.stack([p[0] for p in pairs])
-    Tg = np.stack([p[1] for p in pairs])
-    ce = _centers(Te, est_camera_to_world)
-    cg = _centers(Tg, gt_camera_to_world)
-    s, R, t = umeyama_alignment(ce, cg, with_scale)
-    aligned = s * ce @ R.T + t
-    err = np.linalg.norm(aligned - cg, axis=1)
+    _, err, s = aligned_errors(est, gt, with_scale, max_dt, est_camera_to_world,
+                               gt_camera_to_world)
+    if len(err) < 2:
+        return {"rmse": float("inf"), "n_pairs": len(err)}
     return {
         "rmse": float(np.sqrt((err ** 2).mean())),
         "mean": float(err.mean()),
         "median": float(np.median(err)),
         "max": float(err.max()),
-        "n_pairs": len(pairs),
+        "n_pairs": len(err),
         "scale": s,
     }
 

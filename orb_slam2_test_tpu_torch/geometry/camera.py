@@ -1,4 +1,5 @@
-"""Pinhole camera: projection, back-projection and undistortion.
+"""Pinhole camera: projection, back-projection, distortion and
+undistortion.
 
 Port of orb_slam2_test_tpu/geometry/camera.py (reference: src/Frame.cc
 UndistortKeyPoints). Conventions are the same: Tcw maps world to
@@ -8,6 +9,7 @@ observation has u_right = u - bf / depth.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -31,6 +33,18 @@ class PinholeCamera(NamedTuple):
     height: int = 480
 
     @property
+    def K(self) -> torch.Tensor:
+        """The float32 intrinsic matrix [[fx, 0, cx], [0, fy, cy], [0, 0,
+        1]] as a new CPU tensor, the host constant the JAX package's `K`
+        is. A property takes no device, so engine code never reads it on
+        a path: it takes `camera_matrix(cam, device)`, which moves this
+        matrix to the device it names once and caches it there."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32,
+        )
+
+    @property
     def has_distortion(self) -> bool:
         return any(
             abs(float(d)) > 0.0
@@ -40,6 +54,13 @@ class PinholeCamera(NamedTuple):
     @property
     def baseline(self) -> float:
         return self.bf / self.fx if self.bf else 0.0
+
+
+@functools.lru_cache(maxsize=None)
+def camera_matrix(cam: PinholeCamera, device: torch.device) -> torch.Tensor:
+    """`cam.K` on `device`, moved there once per (camera, device). The
+    cached tensor is shared: callers do not write into it."""
+    return cam.K.to(device)
 
 
 def project(
@@ -72,6 +93,30 @@ def backproject(
     x = (uv[..., 0] - cam.cx) / cam.fx * depth
     y = (uv[..., 1] - cam.cy) / cam.fy * depth
     return torch.stack([x, y, depth], dim=-1)
+
+
+def distort_normalized(cam: PinholeCamera, xy: torch.Tensor) -> torch.Tensor:
+    """Radial-tangential distortion (k1, k2, k3, p1, p2, OpenCV's model)
+    of normalized coordinates [..., 2]."""
+    x, y = xy[..., 0], xy[..., 1]
+    r2 = x * x + y * y
+    radial = 1.0 + r2 * (cam.k1 + r2 * (cam.k2 + r2 * cam.k3))
+    xy_ = x * y
+    x_d = x * radial + 2.0 * cam.p1 * xy_ + cam.p2 * (r2 + 2.0 * x * x)
+    y_d = y * radial + cam.p1 * (r2 + 2.0 * y * y) + 2.0 * cam.p2 * xy_
+    return torch.stack([x_d, y_d], dim=-1)
+
+
+def distort_points(cam: PinholeCamera, uv: torch.Tensor) -> torch.Tensor:
+    """Undistorted pixels [..., 2] -> distorted (raw) pixels [..., 2],
+    the inverse of undistort_points."""
+    xy = torch.stack(
+        [(uv[..., 0] - cam.cx) / cam.fx, (uv[..., 1] - cam.cy) / cam.fy], dim=-1
+    )
+    xy_d = distort_normalized(cam, xy)
+    return torch.stack(
+        [xy_d[..., 0] * cam.fx + cam.cx, xy_d[..., 1] * cam.fy + cam.cy], dim=-1
+    )
 
 
 def undistort_points(

@@ -60,12 +60,37 @@ def _left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     return _eye_like(K) + b[..., None, None] * K + c[..., None, None] * KK
 
 
+def _left_jacobian_inv(omega: torch.Tensor) -> torch.Tensor:
+    """Inverse SO(3) left Jacobian, the translation part of se3_log: I -
+    K / 2 + c K^2 with c = (1 - (theta / 2) cot(theta / 2)) / theta^2,
+    and its series 1/12 + theta^2 / 720 at theta^2 <= 1e-8 (the JAX
+    module's switch and guards)."""
+    theta2 = (omega * omega).sum(-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    half = 0.5 * theta
+    c = torch.where(
+        theta2 > _EPS,
+        (1.0 - half * torch.cos(half) / (torch.sin(half) + _EPS)) / (theta2 + _EPS),
+        1.0 / 12.0 + theta2 / 720.0,
+    )
+    K = hat(omega)
+    KK = K @ K
+    return _eye_like(K) - 0.5 * K + c[..., None, None] * KK
+
+
 def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     """xi [..., 6] = (upsilon, omega) -> T [..., 4, 4]."""
     upsilon, omega = xi[..., :3], xi[..., 3:]
     R = so3_exp(omega)
     t = (_left_jacobian(omega) @ upsilon[..., None])[..., 0]
     return rt_to_mat(R, t)
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """T [..., 4, 4] -> xi [..., 6] = (upsilon, omega)."""
+    omega = so3_log(T[..., :3, :3])
+    upsilon = (_left_jacobian_inv(omega) @ T[..., :3, 3:])[..., 0]
+    return torch.cat([upsilon, omega], dim=-1)
 
 
 def rt_to_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
@@ -151,3 +176,21 @@ def so3_log(R: torch.Tensor) -> torch.Tensor:
     w = w * sgn
     n = torch.sqrt((v * v).sum(-1) + _EPS * _EPS)
     return (2.0 * torch.atan2(n, w) / n)[..., None] * v
+
+
+def rotmat_from_quat(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion [..., 4] as (x, y, z, w), normalized first -> R [...,
+    3, 3] (the TUM trajectory order of quat_from_rotmat)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy)], dim=-1),
+            torch.stack([2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx)], dim=-1),
+            torch.stack([2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy)], dim=-1),
+        ],
+        dim=-2,
+    )

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
+from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera, camera_matrix
 from orb_slam2_test_tpu_torch.geometry.se3 import rt_to_mat
 from orb_slam2_test_tpu_torch.geometry.triangulation import triangulate_dlt
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
@@ -309,8 +309,7 @@ def initialize_mono(
             generator = torch.Generator().manual_seed(0)
         samples = tuple(sample_indices(valid, n_iters, SAMPLE, generator) for _ in range(2))
     idx_h, idx_f = (torch.as_tensor(i, device=dev).to(torch.int64) for i in samples)
-    K = torch.tensor([[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
-                     dtype=torch.float32, device=dev)
+    K = camera_matrix(cam, dev)
 
     uv1n, T1 = _normalize(uv1, valid)
     uv2n, T2 = _normalize(uv2, valid)

@@ -46,6 +46,13 @@ DEFAULTS = {
 }
 
 
+def full_step_revolutions(frames: int, full_frames: int, revolutions: float = 1.08) -> float:
+    """The --revolutions at which `frames` frames move as far per frame
+    as `full_frames` frames at `revolutions` laps: the first frames of
+    the full-length trajectory, for a short dataset of the same scene."""
+    return revolutions * (frames - 1) / (full_frames - 1)
+
+
 def _write_png(path: str, img: np.ndarray) -> None:
     import cv2
 
@@ -209,6 +216,38 @@ def gen_euroc(args) -> int:
         _tracker_overrides(f, close_pts=False)
     print(f"dataset at {d} (settings: {yaml})")
     return 0
+
+
+def write_rectified_settings(d: str) -> str:
+    """Write `d`/settings_rectified.yaml, the EuRoC dataset's
+    settings.yaml with LEFT.* / RIGHT.* rectification blocks, which the
+    stereo_euroc command reads (the JAX script writes none). The images
+    are rendered undistorted and rectified, so the blocks are the
+    identity: the settings' K, no distortion, R = I and the projections
+    [K | 0] and [K | (-bf, 0, 0)]. Returns the path."""
+    from orb_slam2_test_tpu_torch.io.settings import load_settings
+
+    src = os.path.join(d, "settings.yaml")
+    s = load_settings(src)
+
+    def matrix(name: str, rows: int, cols: int, data) -> str:
+        return (f"{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n   dt: d\n"
+                f"   data: [{', '.join(repr(float(x)) for x in data)}]\n")
+
+    K = [s.fx, 0.0, s.cx, 0.0, s.fy, s.cy, 0.0, 0.0, 1.0]
+    blocks = []
+    for side, tx in (("LEFT", 0.0), ("RIGHT", -s.bf)):
+        blocks += [f"{side}.width: {s.width}\n{side}.height: {s.height}\n",
+                   matrix(f"{side}.D", 1, 5, [0.0] * 5), matrix(f"{side}.K", 3, 3, K),
+                   matrix(f"{side}.R", 3, 3, np.eye(3).ravel()),
+                   matrix(f"{side}.P", 3, 4, [s.fx, 0.0, s.cx, tx, 0.0, s.fy, s.cy, 0.0,
+                                              0.0, 0.0, 1.0, 0.0])]
+    out = os.path.join(d, "settings_rectified.yaml")
+    with open(src) as f:
+        text = f.read()
+    with open(out, "w") as f:
+        f.write(text + "".join(blocks))
+    return out
 
 
 def gen_tum(args, rgbd: bool) -> int:

@@ -2,8 +2,15 @@
 
 The same seeded numpy inputs go through geometry/se3.py, camera.py and
 robust.py of both packages. Tolerance atol 1e-5: float32 throughout,
-the two differ only in the order of float operations.
+the two differ only in the order of float operations. The undistortion
+round trip is held to the JAX package's own bound
+(tests/test_geometry.py: 0.1 px after 10 iterations), and the package
+re-exports name for name to the JAX `__init__` files.
 """
+
+import ast
+import importlib
+import os
 
 import numpy as np
 import jax.numpy as jnp
@@ -36,7 +43,8 @@ def _omegas(rng, n=64):
     return w
 
 
-@pytest.mark.parametrize("fn_name", ["hat", "so3_exp", "_left_jacobian"])
+@pytest.mark.parametrize("fn_name", ["hat", "so3_exp", "_left_jacobian",
+                                     "_left_jacobian_inv"])
 def test_so3_functions(rng, fn_name):
     j, t = _both(fn_name, _omegas(rng))
     np.testing.assert_allclose(t, j, atol=ATOL)
@@ -129,3 +137,95 @@ def test_robust_constants_and_huber(rng):
         j = jrob.huber_weight(jnp.asarray(chi2), delta)
         t = trob.huber_weight(torch.from_numpy(chi2), delta)
         np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+
+
+def test_se3_log(rng):
+    """se3_log after se3_exp, the small-angle series of the inverse left
+    Jacobian included (theta^2 <= 1e-8 on the first rows)."""
+    xi = rng.normal(size=(64, 6)).astype(np.float32)
+    xi[:4, 3:] *= 1e-5
+    xi[4, 3:] = 0.0
+    T = np.asarray(jse3.se3_exp(jnp.asarray(xi)))
+    assert (np.sum(xi[:5, 3:].astype(np.float64) ** 2, -1) <= 1e-8).all()
+    j, t = _both("se3_log", T)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    # the principal branch: rotations below pi come back
+    small = np.linalg.norm(xi[:, 3:], axis=-1) < 3.0
+    np.testing.assert_allclose(t[small], xi[small], atol=1e-3)
+
+
+def test_rotmat_from_quat(rng):
+    """rotmat_from_quat after quat_from_rotmat, (x, y, z, w); the
+    quaternion is normalized first."""
+    R = np.asarray(jse3.so3_exp(jnp.asarray(_omegas(rng))))
+    q = np.asarray(jse3.quat_from_rotmat(jnp.asarray(R)))
+    q = q * rng.uniform(0.5, 3.0, (q.shape[0], 1)).astype(np.float32)
+    j, t = _both("rotmat_from_quat", q)
+    np.testing.assert_allclose(t, j, atol=ATOL)
+    np.testing.assert_allclose(t, R, atol=ATOL)
+
+
+# the distortion of configs/EuRoC.yaml (cam0) and configs/TUM1.yaml
+DISTORTED = {
+    "euroc": dict(fx=458.654, fy=457.296, cx=367.215, cy=248.375, k1=-0.28340811,
+                  k2=0.07395907, p1=0.00019359, p2=1.76187114e-05, width=752, height=480),
+    "tum1": dict(fx=517.306408, fy=516.469215, cx=318.643040, cy=255.313989,
+                 k1=0.262383, k2=-0.953104, p1=-0.005358, p2=0.002628, k3=1.163314,
+                 width=640, height=480),
+}
+
+
+@pytest.mark.parametrize("name", sorted(DISTORTED))
+def test_distort_points(rng, name):
+    """distort_points and distort_normalized against the JAX package,
+    and undistort_points(distort_points(uv)) back to uv within the JAX
+    package's bound on the image's middle (where the model inverts)."""
+    kw = DISTORTED[name]
+    jc, tc = jcam.PinholeCamera(**kw), tcam.PinholeCamera(**kw)
+    w, h = kw["width"], kw["height"]
+    uv = (rng.uniform(size=(200, 2)) * [w - 40, h - 40] + 20).astype(np.float32)
+    j = jcam.distort_points(jc, jnp.asarray(uv))
+    t = tcam.distort_points(tc, torch.from_numpy(uv))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+    xy = ((uv - [kw["cx"], kw["cy"]]) / [kw["fx"], kw["fy"]]).astype(np.float32)
+    j = jcam.distort_normalized(jc, jnp.asarray(xy))
+    t = tcam.distort_normalized(tc, torch.from_numpy(xy))
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL)
+    mid = (rng.uniform(size=(64, 2)) * [w / 2, h / 2] + [w / 4, h / 4]).astype(np.float32)
+    back = tcam.undistort_points(tc, tcam.distort_points(tc, torch.from_numpy(mid)),
+                                 num_iters=10)
+    np.testing.assert_allclose(back.numpy(), mid, atol=0.1)
+
+
+def test_camera_matrix():
+    """PinholeCamera.K equals the JAX package's; camera_matrix is K on
+    the device it names, built once."""
+    kw = DISTORTED["euroc"]
+    K = tcam.PinholeCamera(**kw).K
+    assert K.dtype == torch.float32 and K.device.type == "cpu"
+    np.testing.assert_array_equal(K.numpy(), np.asarray(jcam.PinholeCamera(**kw).K))
+    cpu = torch.device("cpu")
+    M = tcam.camera_matrix(tcam.PinholeCamera(**kw), cpu)
+    assert torch.equal(M, K) and tcam.camera_matrix(tcam.PinholeCamera(**kw), cpu) is M
+
+
+def _init_imports(path: str) -> dict:
+    """{name: module} of the `from M import name` lines of an __init__."""
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    return {a.name: node.module for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names}
+
+
+@pytest.mark.parametrize("pkg", ["geometry", "bow", "slam_map"])
+def test_package_reexports(pkg):
+    """Each subpackage re-exports the names of the JAX one's __init__,
+    from the module of the same name, as the same objects."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    j = _init_imports(os.path.join(root, "orb_slam2_test_tpu", pkg, "__init__.py"))
+    t = _init_imports(os.path.join(root, "orb_slam2_test_tpu_torch", pkg, "__init__.py"))
+    assert {n: m.replace("orb_slam2_test_tpu_torch.", "orb_slam2_test_tpu.")
+            for n, m in t.items()} == j
+    package = importlib.import_module(f"orb_slam2_test_tpu_torch.{pkg}")
+    for name, module in t.items():
+        assert getattr(package, name) is getattr(importlib.import_module(module), name)

@@ -10,11 +10,19 @@ package's examples/multi_seq.py) and `cli dist_ba_scaling`
   joint BA prints its `[joint BA]` line with the cameras of both maps,
   the summary line prints the aggregate fps, and --measure-scaling
   prints the JSON report with measure_scaling's keys.
+- multi_seq --multihost on the same two sequences in two processes
+  joined by gloo (SLAM_COORDINATOR / SLAM_NUM_PROCS / SLAM_PROC_ID, as
+  tests/test_torch_dist_ba.py launches its ranks): both ranks print the
+  same joint BAs on a mesh of 2, and their trajectories equal a
+  one-process run on 2 shards within 1e-5 (that file's gloo bound).
 - dist_ba_scaling --synthetic C P O: the report's keys and shard counts.
 """
 
 import json
 import os
+import socket
+import subprocess
+import sys
 
 import cv2
 import numpy as np
@@ -45,7 +53,8 @@ def _write_kitti(d: str, seed: int) -> None:
         f.write("\n".join(f"{t:.6e}" for t, _, _ in seq.frames) + "\n")
 
 
-def test_multi_seq_cli(tmp_path, capsys):
+def _write_two_sequences(tmp_path) -> tuple[str, list]:
+    """The band settings and two 6-frame sequences (seeds 3 and 4)."""
     cam = entry.RGBD_CAM
     settings = str(tmp_path / "band.yaml")
     tsettings.save_settings(tsettings.SlamSettings(
@@ -55,6 +64,12 @@ def test_multi_seq_cli(tmp_path, capsys):
     dirs = [str(tmp_path / f"seq{i}") for i in range(2)]
     for i, d in enumerate(dirs):
         _write_kitti(d, seed=3 + i)
+    return settings, dirs
+
+
+def test_multi_seq_cli(tmp_path, capsys):
+    cam = entry.RGBD_CAM
+    settings, dirs = _write_two_sequences(tmp_path)
     prefix = str(tmp_path / "traj")
     rc = cli.main(["multi_seq", "--seq", f"{settings}:{dirs[0]}", "--seq", f"{settings}:{dirs[1]}",
                    "--dataset", "kitti", "--sensor", "stereo", "--no-vocabulary",
@@ -81,6 +96,70 @@ def test_multi_seq_cli(tmp_path, capsys):
     report = json.loads(next(ln for ln in lines if ln.startswith("{")))
     assert set(report) == REPORT_KEYS
     assert set(report["solve_s"]) == {"1", "2", "4", "8"} and report["n_cams"] == n_cams[-1]
+
+
+RANK = """
+import sys
+import torch
+torch.set_num_threads(1)
+sys.path.insert(0, {root!r})
+from orb_slam2_test_tpu_torch import cli
+sys.exit(cli.main({argv!r} + ["--traj-prefix"] + sys.argv[1:]))
+"""
+
+
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def test_multi_seq_cli_multihost(tmp_path):
+    settings, dirs = _write_two_sequences(tmp_path)
+    argv = ["multi_seq", "--seq", f"{settings}:{dirs[0]}", "--seq", f"{settings}:{dirs[1]}",
+            "--dataset", "kitti", "--sensor", "stereo", "--no-vocabulary",
+            "--joint-ba-every", "6", "--joint-ba-iters", "4", "--device", "cpu"]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = tmp_path / "rank.py"
+    script.write_text(RANK.format(root=root, argv=argv))
+    port = _free_port()
+    # two ranks, and the one-process run on 2 shards with the ranks' one
+    # thread (the tracking's float sums depend on the thread count)
+    runs = [(["rank0", "--multihost"], {"SLAM_PROC_ID": "0"}),
+            (["rank1", "--multihost"], {"SLAM_PROC_ID": "1"}),
+            (["one", "--devices", "2"], {"SLAM_NUM_PROCS": "1"})]
+    procs = []
+    for extra, env in runs:
+        env = {**os.environ, "SLAM_COORDINATOR": f"127.0.0.1:{port}", "SLAM_NUM_PROCS": "2",
+               **env}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(script), str(tmp_path / extra[0]), *extra[1:]], env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE))
+    results = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=240)
+            results.append((p.returncode, so.decode(), se.decode()))
+    finally:
+        for p in procs:
+            p.kill()
+    for rc, so, se in results:
+        assert rc == 0, so[-2000:] + se[-4000:]
+    joint = [[ln for ln in so.splitlines() if ln.startswith("[joint BA]")]
+             for _, so, _ in results]
+    # cams, pts, obs and cost; the solve's time differs
+    same = [[ln.split(" solve=")[0] for ln in run] for run in joint]
+    print("\n".join(joint[0]))
+    assert len(joint[0]) == 3 and same[0] == same[1] == same[2]
+    assert all(ln.endswith("devices=2") for run in joint for ln in run)
+    assert "[multi_seq] 2 sequences, mesh of 2 device(s)" in results[0][1].splitlines()
+    for i in range(2):
+        ref = ttraj.load_trajectory_tum(str(tmp_path / f"one_{i}.txt"))
+        for rank in range(2):
+            got = ttraj.load_trajectory_tum(str(tmp_path / f"rank{rank}_{i}.txt"))
+            assert [t for t, _ in got] == [t for t, _ in ref]
+            np.testing.assert_allclose(np.stack([T for _, T in got]),
+                                       np.stack([T for _, T in ref]), atol=1e-5)
 
 
 def test_dist_ba_scaling_synthetic(tmp_path, capsys):

@@ -129,7 +129,7 @@ def test_port_never_imports_jax():
                 "parallel.multi_map", "parallel.multihost", "io.live", "utils.profiling",
                 "viz", "viz.live_viewer", "viz.map_drawer", "viz.frame_drawer", "viz.viewer",
                 "viz.ar", "tools", "tools.make_synth_data", "tools.build_vocab",
-                "tools.vocab_recall", "tools.ba_window_sweep"):
+                "tools.vocab_recall", "tools.ba_window_sweep", "tools.dataset_runs"):
         assert "orb_slam2_test_tpu_torch." + mod in names
     assert has_jax == "False" and has_jax_pkg == "False"
     assert has_yaml == "False" and has_cv2 == "False" and has_mpl == "False"
