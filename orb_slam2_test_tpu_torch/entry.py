@@ -29,7 +29,8 @@ that the frame really observes; `kitti_insert_scene` three views of four
 planes, 1.07 m apart, for track -> insert -> track -> insert;
 `bench_map` is the bench's random map filling. `map_from_numpy` and
 `map_to_numpy` carry a map between the JAX package's numpy layouts and
-the port's tensors, `frame_from_numpy` a frame and
+the port's tensors, `tracker_to` copies a Tracker's whole state to
+another device, `frame_from_numpy` a frame and
 `vocabulary_from_numpy` a vocabulary, `ba_problem_from_numpy` a bundle
 problem and its camera; `kitti_multi_sequence` gives the concurrent
 multi-sequence path its sequences; `state_from_numpy`, `consistent_scene`,
@@ -52,8 +53,10 @@ from orb_slam2_test_tpu_torch.engine.frame import (
     build_frame_rgbd,
     build_frame_stereo,
 )
+from orb_slam2_test_tpu_torch.engine.loop_closing import LoopCloser
 from orb_slam2_test_tpu_torch.engine.matchers import search_by_projection
 from orb_slam2_test_tpu_torch.engine.tracking import (
+    Tracker,
     TrackerConfig,
     _build_and_track_device,
     _grow_map_device,
@@ -62,6 +65,7 @@ from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp
 from orb_slam2_test_tpu_torch.io.settings import SlamSettings
 from orb_slam2_test_tpu_torch.slam_map.covisibility import build_observer_bitmap
+from orb_slam2_test_tpu_torch.slam_map.keyframe_db import KeyFrameDatabase
 from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState, make_empty_map
 from orb_slam2_test_tpu_torch.system import System
 from orb_slam2_test_tpu_torch.solvers.pose_opt import pose_optimization
@@ -385,6 +389,53 @@ def map_to_numpy(m: MapState) -> dict:
         a = x.detach().cpu().numpy()
         out[name] = a.view(np.uint32) if name.endswith("_desc") else a
     return out
+
+
+def tracker_to(tracker: Tracker, device: torch.device | str) -> Tracker:
+    """A copy of `tracker` with its tensors on `device`: the map and its
+    observer bitmap, the last frame and its links, the velocity, the
+    reference keyframe, the frame counters, the deferred inserts, the
+    loop closer's keyframe database and pending global BA, and the RANSAC
+    generators' states. The copy tracks the next frame as `tracker` would,
+    on `device`; `tracker` is left as it was (reading a card's tensors
+    waits for the card). A deferred insert counts as complete on the
+    copy (its CUDA event stays behind); the vocabulary is shared, its
+    arrays read only."""
+    device = torch.device(device)
+    memo: dict = {}
+
+    def copied(x):
+        if id(x) in memo:
+            return memo[id(x)]
+        if torch.is_tensor(x):
+            out = x.detach().to(device, copy=True)
+        elif isinstance(x, torch.Generator):
+            out = torch.Generator(x.device)
+            out.set_state(x.get_state())
+        elif isinstance(x, torch.device):
+            out = device
+        elif isinstance(x, torch.cuda.Event):
+            out = None
+        elif isinstance(x, np.ndarray):
+            out = x.copy()
+        elif isinstance(x, (Tracker, LoopCloser, KeyFrameDatabase)):
+            out = object.__new__(type(x))
+            memo[id(x)] = out
+            out.__dict__.update((k, copied(v)) for k, v in vars(x).items())
+        elif isinstance(x, tuple):
+            items = [copied(v) for v in x]
+            out = type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+        elif isinstance(x, (list, set)):
+            out = type(x)(copied(v) for v in x)
+        elif isinstance(x, dict):  # a defaultdict keeps its factory
+            out = x.copy()
+            out.update((k, copied(v)) for k, v in x.items())
+        else:  # numbers, strings, frozen configs, the vocabulary, hooks
+            out = x
+        memo[id(x)] = out
+        return out
+
+    return copied(tracker)
 
 
 def frame_from_numpy(f, device: torch.device | str = "cuda") -> FrameData:

@@ -125,7 +125,14 @@ def _normal_blocks(prob, cam, lam, robust, active):
     seen = segment_sum(Q, op, w) > 0.0
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     Hpp_d = torch.where(seen[:, None, None], Hpp_d, eye3)
-    return Hcc_d, inv3x3(Hpp_d), bc, bp, Wcp, seen
+    # inverted in float64: at small damping a point seen along nearly one
+    # ray has a block of condition 1e7-1e8, whose float32 determinant,
+    # each product rounded on its own as eager ops round it, cancels
+    # below inv3x3's 1e-12 floor and steps the point by up to 1e12 m (the
+    # JAX package's compiled inv3x3 fuses the cofactors' multiply-adds
+    # and stays bounded)
+    Hpp_inv = inv3x3(Hpp_d.double()).to(Hpp_d.dtype)
+    return Hcc_d, Hpp_inv, bc, bp, Wcp, seen
 
 
 def _back_substitute(prob, Hpp_inv, bp, u, seen):

@@ -5,8 +5,10 @@ points through the close gate).
 
 `entry.kitti_insert_scene` (1241x376, 2000 features) at a map of K = 64
 keyframes and P = 16,384 points, 40 and 12,000 live: the cut from the
-bench's K = 384, P = 131,072 keeps the CPU run short; full capacity
-runs on the card (chip_smoke.py [10]). The port tracks view 1 and
+bench's K = 384, P = 131,072 keeps this file short; the same sequence at
+full capacity is held to the JAX package in
+tests/test_torch_full_capacity.py (and the card to the CPU port in
+chip_smoke.py [10]). The port tracks view 1 and
 inserts it (full), then tracks view 2 against the grown map and inserts
 it (light); each insert's inputs also go through the JAX function.
 

@@ -81,10 +81,10 @@ def _cam() -> PinholeCamera:
     return entry.LOOP_MAP_CAM
 
 
-def make_loop_map(n_kf=N_KF, K=32, N=200, P=4096, seed=0):
+def make_loop_map(n_kf=N_KF, K=32, N=200, P=4096, seed=0, n_world=1600):
     """entry.synthetic_loop_map, with a vocabulary the JAX package built
     from its keyframes' descriptors."""
-    m, T_true = entry.synthetic_loop_map(n_kf=n_kf, K=K, N=N, P=P, seed=seed)
+    m, T_true = entry.synthetic_loop_map(n_kf=n_kf, K=K, N=N, P=P, n_world=n_world, seed=seed)
     descs = m["kf_desc"][:n_kf][m["kf_kp_valid"][:n_kf]]
     return m, jbuild_vocabulary(descs, k=8, depth=2, seed=0), T_true
 

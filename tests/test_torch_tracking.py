@@ -132,7 +132,9 @@ def test_track_frame_step_kitti_geometry():
     the JAX package's _build_and_track_device(sensor="stereo"):
     build_frame_stereo, then _track_frame_device. The two jitted parts
     (the first compiled by the test above) stand for the fused program,
-    whose compile alone would take about 20 s here."""
+    whose compile alone would take about 20 s here. The same frame at the
+    full capacity (K = 384, P = 131,072) is held to the JAX package in
+    tests/test_torch_full_capacity.py."""
     cfg = dataclasses.replace(
         entry.KITTI_CFG, max_keyframes=48, max_points=16384
     )
