@@ -14,17 +14,23 @@ through `cli.main` on the card (tools/dataset_runs.run_driver):
   vocabulary (orb_slam2_test_tpu/data/vocab_k10_L5.npz, read by its
   path) and the default L6: the runs of runs/euroc_mh01_synth,
   runs/tum_mono_synth, runs/tum_rgbd_synth and runs/r04/*.log;
-- stereo_euroc (L6) on the EuRoC dataset, through identity LEFT.* /
+- stereo_euroc (L5, L6) on the EuRoC dataset, through identity LEFT.* /
   RIGHT.* blocks, and mono_kitti (L6) on the KITTI dataset's image_0
   (the JAX package recorded neither).
 
+The datasets are the port's: below a radius of 57.14 m (EuRoC, TUM) each
+quad faces the path 0.35 rad of arc back, as in every recorded JAX run,
+and every settings file holds make_synth_data's
+`Tracker.maxFramesBetweenKF: 5`, which only runs/r04/tum_rgbd.log had.
+
 For each run it prints frames, lost, relocs, loops, keyframes, the ATE
 (Sim3-aligned for a monocular run), the median and p90 host ms a frame,
-the relocalizing frame's ms and error, the kernels' launches and the
-JAX run's figures beside them, with the card's name and power limit,
-and writes dataset_drivers_run.json (and each run's trajectory, diag
-and summary) to --out. The datasets go to a temporary directory. It
-needs a CUDA card and exits non-zero without one.
+the relocalizing frame's ms and error, the kernels' launches and the JAX
+run's figures beside them with its keyframe cap and quads' offset, with
+the card's name and power limit, and writes dataset_drivers_run.json
+(and each run's trajectory, diag and summary) to --out. The datasets go
+to a temporary directory. It needs a CUDA card and exits non-zero
+without one.
 """
 
 from __future__ import annotations
@@ -43,17 +49,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 L5 = os.path.join(ROOT, "orb_slam2_test_tpu", "data", "vocab_k10_L5.npz")
 L6 = os.path.join(ROOT, "orb_slam2_test_tpu", "data", "vocab_k10_L6.npz")
 # (driver, vocabulary name) -> the JAX package's recorded run on a TPU
-# (its log): frames, lost, relocs, loops, keyframes, ATE
+# (its log): whether its settings capped the keyframe interval at 5, its
+# quads' viewpoint offset in rad (0.35 before commit 4e42fb9), frames,
+# lost, relocs, loops, keyframes, ATE. The runs/*_synth runs came before
+# the cap (commit dd5b592) and runs/r04's EuRoC and TUM mono logs too;
+# runs/r04/tum_rgbd.log ran with it
 JAX_RUNS = {
-    ("mono_euroc", "L5"): ("runs/euroc_mh01_synth/run.log", 300, 0, 0, 0, 35, 1.0029),
-    ("mono_euroc", "L6"): ("runs/r04/euroc_mono.log", 300, 0, 0, 0, 34, 0.9353),
-    ("mono_tum", "L5"): ("runs/tum_mono_synth/run.log", 360, 5, 1, 1, 40, 0.1871),
-    ("mono_tum", "L6"): ("runs/r04/tum_mono.log", 360, 5, 1, 1, 40, 0.1645),
-    ("rgbd_tum", "L5"): ("runs/tum_rgbd_synth/run.log", 360, 5, 1, 0, 41, 0.5686),
-    ("rgbd_tum", "L6"): ("runs/r04/tum_rgbd.log", 360, 5, 1, 1, 73, 0.4509),
+    ("mono_euroc", "L5"): ("runs/euroc_mh01_synth/run.log", False, 0.35, 300, 0, 0, 0, 35,
+                           1.0029),
+    ("mono_euroc", "L6"): ("runs/r04/euroc_mono.log", False, 0.35, 300, 0, 0, 0, 34, 0.9353),
+    ("mono_tum", "L5"): ("runs/tum_mono_synth/run.log", False, 0.35, 360, 5, 1, 1, 40, 0.1871),
+    ("mono_tum", "L6"): ("runs/r04/tum_mono.log", False, 0.35, 360, 5, 1, 1, 40, 0.1645),
+    ("rgbd_tum", "L5"): ("runs/tum_rgbd_synth/run.log", False, 0.35, 360, 5, 1, 0, 41, 0.5686),
+    ("rgbd_tum", "L6"): ("runs/r04/tum_rgbd.log", True, 0.35, 360, 5, 1, 1, 73, 0.4509),
+    ("stereo_euroc", "L5"): None,
     ("stereo_euroc", "L6"): None,
     ("mono_kitti", "L6"): None,
 }
+JAX_FIELDS = ("source", "cap", "offset_rad", "frames", "lost", "relocs", "loops", "keyframes",
+              "ate_m")
 
 
 def main() -> int:
@@ -114,12 +128,11 @@ def main() -> int:
                    "launches": [int(x) for x in np.sum(r["launches_per_frame"], axis=0)],
                    "capacity_growth_events": r["capacity_growth_events"], "wall_s": wall}
             if jax_run is not None:
-                src, *figs = jax_run
-                row["jax"] = dict(zip(("source", "frames", "lost", "relocs", "loops",
-                                       "keyframes", "ate_m"), (src, *figs)))
+                row["jax"] = dict(zip(JAX_FIELDS, jax_run))
             summary["runs"][tag] = row
             jax = ("no JAX run" if jax_run is None else
-                   f"JAX ({row['jax']['source']}, TPU): {row['jax']['frames']} frames, "
+                   f"JAX ({row['jax']['source']}, TPU; offset {row['jax']['offset_rad']} rad, "
+                   f"{'cap 5' if row['jax']['cap'] else 'no cap'}): {row['jax']['frames']} frames, "
                    f"{row['jax']['lost']} lost, {row['jax']['relocs']} relocs, "
                    f"{row['jax']['loops']} loops, {row['jax']['keyframes']} keyframes, ATE "
                    f"{row['jax']['ate_m']} m")

@@ -653,7 +653,6 @@ class Tracker:
         self.last_Tcw = np.eye(4)
         self._prev_Tcw = np.eye(4)
         self.velocity = None  # [4, 4] or None
-        self._after_loop = False  # a loop re-anchored last_Tcw since the last velocity
         self.ref_kf = 0  # an int, or a 0-d device tensor until flushed
         self.ref_kf_tracked = 0
         self.frames_since_kf = 0
@@ -772,12 +771,8 @@ class Tracker:
             # mLastFrame.mTcw is empty, so the next frame tracks the
             # reference keyframe). The JAX package keeps the relocalized
             # frame's own correction, about the identity, as a velocity.
-            # After a loop correction likewise: the previous pose was
-            # re-anchored, not tracked, and a velocity across it carries
-            # the correction's residual into the next prediction.
-            self.velocity = (None if relocalizing or self._after_loop
+            self.velocity = (None if relocalizing
                              else self.last_Tcw @ _inv4(self._prev_Tcw))
-            self._after_loop = False
             if not self.localization_only:
                 with profiler.span("keyframe_insert"):
                     self._maybe_insert_keyframe(frame, use_depth)
@@ -1348,15 +1343,13 @@ class Tracker:
                 # the keyframes moved while tracking went on: keep the
                 # tracked pose relative to the moved keyframe, last' =
                 # last inv(kf_old) kf_new (reference
-                # Tracking::UpdateLastFrame), then drop the motion model:
-                # the next two frames track the reference keyframe, so the
-                # next velocity joins two poses tracked on the corrected
-                # map (the JAX Tracker takes one across the re-anchor;
-                # ROADMAP queue 3)
+                # Tracking::UpdateLastFrame), and keep the velocity, a
+                # motion in the camera's own frame that the correction
+                # does not change (the reference's LoopClosing leaves
+                # mVelocity alone; the JAX Tracker drops it, ROADMAP
+                # queue 3)
                 moved = se3_inverse(m_before.kf_Tcw[kf]) @ m.kf_Tcw[kf]
                 self.last_Tcw = self.last_Tcw @ moved.cpu().numpy().astype(np.float64)
-                self.velocity = None
-                self._after_loop = True
                 self._ref_Tcw_host = None
             self.map = m
 

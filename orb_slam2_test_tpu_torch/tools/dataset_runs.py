@@ -47,7 +47,12 @@ DRIVERS = {
 # kind -> (frames, first blank frame or None) of the JAX package's runs:
 # runs/euroc_mh01_synth, runs/tum_mono_synth and runs/tum_rgbd_synth
 # (a 5-frame blackout at 300, their diag), and make_synth_data's KITTI
-# default
+# default. Those runs and runs/r04/*.log rendered each quad facing the
+# path 0.35 rad back, as make_loop_scene does below 57.14 m (the JAX
+# package's generator has used 20 m of arc since commit 4e42fb9), and all
+# but runs/r04/tum_rgbd.log ran without the `Tracker.maxFramesBetweenKF:
+# 5` that make_synth_data writes (examples/dataset_drivers_run.py's
+# JAX_RUNS)
 FULL = {"euroc": (300, None), "kitti": (600, None), "tum-mono": (360, 300),
         "tum-rgbd": (360, 300)}
 BLACKOUT_LEN = 5

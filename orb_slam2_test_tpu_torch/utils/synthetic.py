@@ -295,17 +295,26 @@ def make_loop_scene(
     y_spread: float = 4.0,
 ):
     """Landmarks lining a circular corridor: textured quads on the inner
-    and outer walls, each facing the point of the path ~20 m of arc
-    behind it (where it is seen from), at log-uniform sizes so corners
-    appear across the pyramid's octaves. Returns (landmarks [m, 3],
-    intensities [m], patches, normals [m, 3], ref_dist [m])."""
+    and outer walls, each facing the point of the path 0.35 rad or 20 m
+    of arc behind it, whichever is shorter (where it is seen from), at
+    log-uniform sizes so corners appear across the pyramid's octaves.
+    Returns (landmarks [m, 3], intensities [m], patches, normals [m, 3],
+    ref_dist [m])."""
     th = rng.uniform(0.0, 2.0 * np.pi, size=n_landmarks)
     side = np.where(rng.uniform(size=n_landmarks) < 0.5, 1.0, -1.0)
     off = rng.uniform(wall_near, wall_far, size=n_landmarks)
     r = radius + side * off
     y = rng.uniform(-y_spread, y_spread, size=n_landmarks)
     landmarks = np.stack([r * np.cos(th), y, r * np.sin(th)], axis=1).astype(np.float32)
-    th_view = th - 20.0 / max(radius, 1.0)
+    # The viewpoint lies 0.35 rad of arc back, or 20 m where that is
+    # shorter. The JAX package's commit 4e42fb9 made it 20 m at every
+    # radius to stop 0.35 rad (38 m) turning arcs edge-on at radius 110;
+    # below 20 / 0.35 = 57.14 m that lengthens the offset instead (1.33 rad
+    # at EuRoC's 15 m), which magnifies the quads in view 2.1-2.6x and
+    # loses mono EuRoC from frame 53-58. The recorded EuRoC and TUM runs
+    # predate it. At radius >= 57.15 m this is the JAX package's formula, bit for
+    # bit; below, the one before 4e42fb9.
+    th_view = th - min(0.35, 20.0 / max(radius, 1.0))
     viewpoint = np.stack(
         [radius * np.cos(th_view), np.zeros_like(th_view), radius * np.sin(th_view)], axis=1)
     normals = viewpoint - landmarks

@@ -2,15 +2,18 @@
 datasets, as chip_smoke.py [19] and examples/dataset_drivers_run.py run
 them) and `evaluation.aligned_errors`, on the CPU.
 
-- mono_tum on a 30-frame TUM mono dataset blacked out at frames 20-24,
+- mono_tum on a 36-frame TUM mono dataset blacked out at frames 26-30,
   with the default vocabulary: LOST on exactly those 5 frames, 1
-  relocalization on frame 25, no kernel launch counted on the CPU, and
+  relocalization on frame 31, no kernel launch counted on the CPU, and
   the relocalized frame no farther from the truth than the farthest
   frame tracked before the blackout, after the trajectory's Sim3
   alignment (these short monocular maps are tens of centimetres off
   before any blackout). Fewer frames before the blackout leave 5
-  keyframes or fewer at some thread counts, and the Tracker then resets
-  instead of relocalizing, as the reference does.
+  keyframes or fewer when the initialization's RANSAC draw fails on
+  frame 1 (the port's seeded draw does on this scene, and its Tracker
+  initializes on frame 6, where the JAX package's starts on frame 1;
+  tests/test_torch_init_frame.py), and the Tracker then resets instead
+  of relocalizing, as the reference does.
 - `aligned_errors`: the ATE's own alignment, pose by pose; the ATE
   stays the JAX package's.
 """
@@ -27,7 +30,7 @@ from orb_slam2_test_tpu_torch.tools import dataset_runs
 
 torch.set_num_threads(2)
 
-BLACKOUT = (30, 20)  # frames, first of dataset_runs.BLACKOUT_LEN blank frames
+BLACKOUT = (36, 26)  # frames, first of dataset_runs.BLACKOUT_LEN blank frames
 
 
 def test_blackout_relocalizes_from_files(tmp_path):

@@ -33,7 +33,9 @@ noise), depth measured; a k=8, depth=2 vocabulary is built from them.
   (ROADMAP queue 3); the port pads the pending problem and its stamps,
   and ends equal to the same BA run without the growth.
 - The Tracker: `drain_backend` runs a pending global BA to its end,
-  and a checkpoint written after a loop reloads with its loop edges.
+  and a checkpoint written after a loop reloads with its loop edges; the
+  flush that closes a loop re-anchors the last pose as the JAX Tracker
+  does and keeps the velocity, which the JAX Tracker drops.
 - `utils.synthetic`'s loop trajectory, scene and renders equal the JAX
   package's exactly; the process-pool stereo renderer
   (`render_loop_stereo`, 2 spawned workers) equals the in-process one.
@@ -396,6 +398,59 @@ def test_tracker_drain_and_checkpoint_after_loop(loop_map, tmp_path):
     torch.testing.assert_close(again.map.kf_Tcw, tracker.map.kf_Tcw)
 
 
+class _ClosingStub:
+    """A loop closer that closes a loop on every keyframe it is given,
+    returning `moved` as the corrected map."""
+
+    last_candidate = None
+
+    def __init__(self, moved):
+        self.moved = moved
+
+    def advance_global_ba(self, m):
+        return m, True
+
+    def on_new_keyframe(self, m, kf):
+        return self.moved, True
+
+
+def test_tracker_keeps_its_velocity_across_a_loop(loop_map):
+    """The flush whose keyframe closes a loop re-anchors the last pose to
+    the moved keyframe (last' = last inv(kf_old) kf_new, reference
+    Tracking::UpdateLastFrame) in both packages. The port keeps the
+    velocity, as the reference does (its LoopClosing leaves Tracking's
+    mVelocity alone); the JAX Tracker drops it (ROADMAP queue 3)."""
+    from orb_slam2_test_tpu.engine.tracking import Tracker as JTracker
+    from orb_slam2_test_tpu.engine.tracking import TrackerConfig as JConfig
+    from orb_slam2_test_tpu_torch.engine.tracking import Tracker, TrackerConfig
+
+    m, _, _ = loop_map
+    kf = 21
+    delta = se3_exp(torch.tensor([0.03, -0.02, 0.05, 0.01, -0.02, 0.015])).numpy()
+    moved = dict(m, kf_Tcw=m["kf_Tcw"].copy())
+    moved["kf_Tcw"][kf] = m["kf_Tcw"][kf] @ delta
+    rng = np.random.default_rng(3)
+    last = se3_exp(torch.from_numpy(rng.normal(0, 0.3, 6).astype(np.float32))).numpy()
+    vel = se3_exp(torch.tensor([0.5, 0.0, 0.02, 0.0, 0.04, 0.0])).numpy()
+    reanchored = last.astype(np.float64) @ np.linalg.inv(m["kf_Tcw"][kf]) @ moved["kf_Tcw"][kf]
+    cfg = dict(n_features=200, max_keyframes=32, max_points=4096)
+
+    port = Tracker(_cam(), TrackerConfig(**cfg), device="cpu")
+    port.map, port.loop_closer = _tmap(m), _ClosingStub(_tmap(moved))
+    jax_ = JTracker(_jcam(_cam()), JConfig(**cfg))
+    jax_.map, jax_.loop_closer = _jmap(m), _ClosingStub(_jmap(moved))
+    for tr, pending in ((port, (torch.tensor(kf), torch.tensor(-1), torch.tensor(100), None)),
+                        (jax_, (jnp.int32(kf), jnp.int32(-1), jnp.int32(100)))):
+        tr.state, tr.n_live_kf, tr.ref_kf = "OK", N_KF, kf
+        tr.last_Tcw, tr.velocity = last.copy(), vel.copy()
+        tr._pending_kf = [pending]
+        tr.flush_backend()
+        assert tr.stats["loops"] == 1
+        np.testing.assert_allclose(tr.last_Tcw, reanchored, atol=1e-5)
+    np.testing.assert_array_equal(port.velocity, vel)
+    assert jax_.velocity is None
+
+
 @pytest.mark.slow
 def test_port_tracker_closes_out_and_back_loop():
     """tests/test_loop_closing_e2e.py::test_loop_closing_on_out_and_back
@@ -413,24 +468,28 @@ def test_port_tracker_closes_out_and_back_loop():
 
 def test_loop_scene_matches_jax():
     """utils.synthetic's loop trajectory, scene and renders: the JAX
-    package's, exactly (the same numpy code and draws); the process-pool
-    stereo renderer equals the in-process one as uint8."""
+    package's at r04's 0.35 rad viewpoint offset, exactly (the same numpy
+    code and draws; at radius 20 m the JAX package's own offset is 20 m of
+    arc, tests/test_torch_synthetic_geometry.py); the process-pool stereo
+    renderer equals the in-process one as uint8."""
     from orb_slam2_test_tpu.geometry.camera import PinholeCamera as JC
     from orb_slam2_test_tpu.utils import synthetic as jsyn
     from orb_slam2_test_tpu_torch.utils import synthetic as tsyn
+    from test_torch_synthetic_geometry import jax_r04_scenes
 
     np.testing.assert_array_equal(tsyn.make_loop_trajectory(30, 20.0, 1.27),
                                   jsyn.make_loop_trajectory(30, 20.0, 1.27))
-    for a, b in zip(tsyn.make_loop_scene(np.random.default_rng(3), 200, 20.0),
-                    jsyn.make_loop_scene(np.random.default_rng(3), 200, 20.0)):
-        np.testing.assert_array_equal(a, b)
     cam = entry.KITTI_CAM._replace(width=200, height=80, fx=120.0, fy=120.0, cx=100.0, cy=40.0,
                                    bf=120.0 * 0.53716)
+    with jax_r04_scenes():
+        for a, b in zip(tsyn.make_loop_scene(np.random.default_rng(3), 200, 20.0),
+                        jsyn.make_loop_scene(np.random.default_rng(3), 200, 20.0), strict=True):
+            np.testing.assert_array_equal(a, b)
+        j = jsyn.render_loop_sequence(np.random.default_rng(1), 4, JC(**cam._asdict()),
+                                      n_landmarks=300, radius=20.0, baseline=0.53716,
+                                      blackout=(2,))
     t = tsyn.render_loop_sequence(np.random.default_rng(1), 4, cam, n_landmarks=300,
                                   radius=20.0, baseline=0.53716, blackout=(2,))
-    j = jsyn.render_loop_sequence(np.random.default_rng(1), 4, JC(**cam._asdict()),
-                                  n_landmarks=300, radius=20.0, baseline=0.53716,
-                                  blackout=(2,))
     np.testing.assert_array_equal(t["poses"], j["poses"])
     for side in ("left", "right"):
         for a, b in zip(t[side], j[side]):

@@ -6,8 +6,15 @@ pixels (the 16-bit depth too), and times.txt, rgb.txt, depth.txt,
 data.csv, groundtruth.txt and settings.yaml are byte-equal. The port's
 KITTI dataset written by 2 spawned workers equals the one written in
 one process.
+
+Below a radius of 57.14 m (KITTI at --radius 20, TUM at 12 m, EuRoC at
+15 m) the port's quads face the path 0.35 rad back, as the JAX package's
+did before its commit 4e42fb9, so the JAX script runs with that offset
+(`jax_r04_scenes`, tests/test_torch_synthetic_geometry.py); KITTI at its
+60 m default runs the JAX script as it is.
 """
 
+import contextlib
 import importlib.util
 import os
 import sys
@@ -19,17 +26,21 @@ import torch
 
 from orb_slam2_test_tpu_torch import cli
 
+from test_torch_synthetic_geometry import jax_r04_scenes
+
 torch.set_num_threads(2)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-# (kind, options): a blackout on the TUM mono case covers the flat frames
+# case -> (kind, options, whether the JAX script runs with r04's offset):
+# a blackout on the TUM mono case covers the flat frames
 CASES = {
-    "kitti": ["--frames", "3", "--landmarks", "300", "--radius", "20"],
-    "tum-mono": ["--frames", "3", "--landmarks", "200", "--blackout-at", "1",
-                 "--blackout-len", "1"],
-    "tum-rgbd": ["--frames", "2", "--landmarks", "200"],
-    "euroc": ["--frames", "2", "--landmarks", "200"],
+    "kitti": ("kitti", ["--frames", "3", "--landmarks", "300", "--radius", "20"], True),
+    "kitti-r60": ("kitti", ["--frames", "3", "--landmarks", "300", "--radius", "60"], False),
+    "tum-mono": ("tum-mono", ["--frames", "3", "--landmarks", "200", "--blackout-at", "1",
+                              "--blackout-len", "1"], True),
+    "tum-rgbd": ("tum-rgbd", ["--frames", "2", "--landmarks", "200"], True),
+    "euroc": ("euroc", ["--frames", "2", "--landmarks", "200"], True),
 }
 
 
@@ -81,20 +92,21 @@ def assert_same_tree(a: dict, b: dict) -> None:
 def jax_trees(tmp_path_factory):
     mod = load_example("make_synth_data")
     out = {}
-    for kind, opts in CASES.items():
-        d = str(tmp_path_factory.mktemp("jax") / kind)
-        assert run_example(mod, [kind, "--out", d] + opts) == 0
-        out[kind] = tree(d)
+    for case, (kind, opts, r04) in CASES.items():
+        d = str(tmp_path_factory.mktemp("jax") / case)
+        with jax_r04_scenes() if r04 else contextlib.nullcontext():
+            assert run_example(mod, [kind, "--out", d] + opts) == 0
+        out[case] = tree(d)
     return out
 
 
-@pytest.mark.parametrize("kind", list(CASES))
-def test_make_synth_data_matches_jax(kind, jax_trees, tmp_path):
-    d = str(tmp_path / kind)
-    assert cli.main(["make_synth_data", kind, "--out", d, "--device", "cpu"]
-                    + CASES[kind]) == 0
+@pytest.mark.parametrize("case", list(CASES))
+def test_make_synth_data_matches_jax(case, jax_trees, tmp_path):
+    kind, opts, _ = CASES[case]
+    d = str(tmp_path / case)
+    assert cli.main(["make_synth_data", kind, "--out", d, "--device", "cpu"] + opts) == 0
     port = tree(d)
-    assert_same_tree(port, jax_trees[kind])
+    assert_same_tree(port, jax_trees[case])
     if kind == "tum-rgbd":
         depth = [v for k, v in port.items() if k.startswith("depth") and k.endswith(".png")]
         assert depth and all(x.dtype == np.uint16 and x.max() > 0 for x in depth)
@@ -108,7 +120,7 @@ def test_make_synth_data_kitti_workers(jax_trees, tmp_path):
     same files as one process (and so as the JAX script's)."""
     d = str(tmp_path / "kitti")
     assert cli.main(["make_synth_data", "kitti", "--out", d, "--workers", "2",
-                     "--device", "cpu"] + CASES["kitti"]) == 0
+                     "--device", "cpu"] + CASES["kitti"][1]) == 0
     assert_same_tree(tree(d), jax_trees["kitti"])
 
 
