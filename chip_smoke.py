@@ -258,7 +258,11 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    blocks, its stereo frame on the card and on the CPU with the card's
    descriptors: keypoints equal, right u within STEREO_UR_ATOL_PX on
    STEREO_UR_SHARE of the stereo matches either device makes, the flips
-   near-ties.
+   near-ties; (e) the capped mono_tum at full length (360 frames, blank
+   300-304, rendered beside (a)) through `cli.main` with the JAX
+   package's L5 vocabulary: LOST on exactly the blank frames, 1
+   relocalization on frame 305, the launches of (b), and the ATE within
+   FULL_TUM_ATE_BOUND_M, drawn from the card's own seed spread.
 
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
@@ -2303,6 +2307,21 @@ STEREO_UR_SHARE = 0.99
 GATHERS_PER_FRAME = {"mono": 1, "rgbd": 1, "stereo": 3}
 
 
+# [19e]: the capped mono_tum at full length (tools/dataset_runs.FULL:
+# 360 frames, blank 300-304, make_synth_data's Tracker.maxFramesBetweenKF:
+# 5) with the JAX package's L5 vocabulary, the run whose card ATE (0.6733
+# m) parted from the JAX package's CPU one (0.1700 m). Its ATE is chaotic
+# in float32: on the card (NVIDIA H100 80GB HBM3, 700.00 W) the port's
+# tracker seeds 0-9 spread it over 0.1678-0.6771 m
+# (examples/mono_tum_lockstep.py --device cuda, PERF.md §5), and this run
+# is seed 0, the largest. Why the card's spread lies
+# above the CPU's is open (ROADMAP queue 3). The bound is that largest
+# seed plus the 10% the CLI-vs-JAX tests allow
+FULL_TUM_VOCAB = os.path.join(os.path.dirname(os.path.abspath(__file__)), "orb_slam2_test_tpu",
+                              "data", "vocab_k10_L5.npz")
+FULL_TUM_ATE_BOUND_M = 1.1 * 0.6771
+
+
 def _sensor(driver: str) -> str:
     return driver.split("_")[0]
 
@@ -2735,8 +2754,48 @@ def _rectified_pair(dev, left: np.ndarray, right: np.ndarray) -> dict:
             "replay": rep}
 
 
+def _full_mono_tum(dev, card: str, proc, data: str, tmp: str) -> dict:
+    """[19e]: the capped mono_tum at full length through `cli.main` on
+    the card."""
+    from orb_slam2_test_tpu_torch.tools import dataset_runs
+
+    t0 = time.perf_counter()
+    frames, at = dataset_runs.FULL["tum-mono"]
+    dataset_runs.finish_dataset(proc, "tum-mono", data, timeout=600)
+    blank = list(range(at, at + dataset_runs.BLACKOUT_LEN))
+    _zero_launches()
+    r = dataset_runs.run_driver("mono_tum", data, tmp, vocabulary=FULL_TUM_VOCAB,
+                                device=str(dev), tag="mono_tum_full")
+    per_frame = r["launches_per_frame"]
+    ms = np.asarray(r["frame_s"]) * 1e3
+    out = {"frames": frames, "lost_at": r["lost_at"], "relocalized": r["relocalized"],
+           "loops": r["loops"], "keyframes": r["keyframes"], "ate_m": r["ate_rmse"],
+           "ate_pairs": r["ate_pairs"], "median_ms": float(np.median(ms)),
+           "p90_ms": float(np.percentile(ms, 90)),
+           "launches": tuple(int(x) for x in np.sum(per_frame, axis=0))}
+    print(f"[19e] mono_tum, {frames} frames, L5 ({card}): lost at {out['lost_at']}, "
+          f"relocalized {out['relocalized']}, {out['loops']} loops, {out['keyframes']} "
+          f"keyframes, ATE {out['ate_m']:.4f} m over {out['ate_pairs']} pairs (bound "
+          f"{FULL_TUM_ATE_BOUND_M:.4f} m; the seed spreads of both packages: PERF.md §5); median "
+          f"{out['median_ms']:.1f}, p90 {out['p90_ms']:.1f} ms a frame host wall; launches "
+          f"{out['launches']}")
+    tracked = [i for i in range(1, frames) if r["states"][i] == r["states"][i - 1] == "OK"]
+    _check(r["lost_at"] == blank, f"[19e] lost at {r['lost_at']}, blank {blank}")
+    _check(r["relocs"] == 1 and [x["frame"] for x in r["relocalized"]] == [blank[-1] + 1],
+           f"[19e] relocs {r['relocs']} {r['relocalized']}")
+    _check(bool(r["ate_rmse"] <= FULL_TUM_ATE_BOUND_M),
+           f"[19e] ATE {r['ate_rmse']} against {FULL_TUM_ATE_BOUND_M}")
+    _check(all(pf[0] == GATHERS_PER_FRAME["mono"] for pf in per_frame),
+           f"[19e] patch_gather launches per frame {sorted(set(per_frame))}")
+    _check(all(per_frame[i][1] >= 2 for i in tracked + [blank[-1] + 1]),
+           "[19e] pose_opt launches on tracked and relocalizing frames")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"[19e] took {out['phase_s']:.1f} s")
+    return out
+
+
 def _dataset_drivers_phase(dev, card: str) -> dict:
-    """[19a]-[19d]: the six dataset commands from files on the card."""
+    """[19a]-[19e]: the six dataset commands from files on the card."""
     import tempfile
 
     import torch
@@ -2748,10 +2807,15 @@ def _dataset_drivers_phase(dev, card: str) -> dict:
 
     t_phase = time.perf_counter()
     out = {"runs": {}}
-    with tempfile.TemporaryDirectory() as tmp:
-        # -- 19a. the datasets, rendered at once in processes of their own
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        # -- 19a. the datasets, rendered at once in processes of their own,
+        # [19e]'s full-length TUM mono beside them
         t0 = time.perf_counter()
-        workers = max(1, (os.cpu_count() or 1) - len(DRIVER_DATA) + 1)
+        full_tum = os.path.join(tmp, "tum-mono-full")
+        full_proc = dataset_runs.start_dataset("tum-mono", full_tum,
+                                               blackout_at=dataset_runs.FULL["tum-mono"][1])
+        stack.callback(full_proc.kill)
+        workers = max(1, (os.cpu_count() or 1) - len(DRIVER_DATA))
         procs = {kind: dataset_runs.start_dataset(
             kind, os.path.join(tmp, kind), n, at, workers=workers if kind == "kitti" else 1)
             for kind, (n, at) in DRIVER_DATA.items()}
@@ -2885,6 +2949,8 @@ def _dataset_drivers_phase(dev, card: str) -> dict:
         _, left, right = seq.load(seq.items[0])
         out["distorted_frame"] = _distorted_frame(dev, left, card)
         out["rectified_pair"] = _rectified_pair(dev, left, right)
+        # -- 19e. the capped mono_tum at full length
+        out["mono_tum_full"] = _full_mono_tum(dev, card, full_proc, full_tum, tmp)
     out["phase_s"] = time.perf_counter() - t_phase
     print(f"[19] took {out['phase_s']:.1f} s")
     return out
@@ -3547,7 +3613,8 @@ def main() -> int:
                              "vocab_recall": tools_stats["vocab_recall"]["launches"],
                              "ba_window_sweep": tools_stats["ba_window_sweep"]["launches"],
                              **{f"dataset_{k}": v["launches"]
-                                for k, v in drivers_stats["runs"].items()}},
+                                for k, v in drivers_stats["runs"].items()},
+                             "dataset_mono_tum_full": drivers_stats["mono_tum_full"]["launches"]},
         "tracking_step_ms": step_ms_mono,
         "tracking_step_wall_ms": step_wall_ms,
         "kitti_stereo_ms": {k: v[0] for k, v in step_ms.items()},

@@ -158,11 +158,11 @@ def jax_closed(loop_map):
 
 
 def test_correct_loop_device_full_capacity(loop_map):
-    small.test_correct_loop_device_matches_jax(loop_map)
+    small.test_correct_loop_device_matches_jax(loop_map, True)
 
 
 def test_compute_and_correct_full_capacity(loop_map, jax_closed):
-    small.test_compute_and_correct_matches_jax(loop_map, jax_closed)
+    small.test_compute_and_correct_matches_jax(loop_map, jax_closed, True)
 
 
 @pytest.fixture(scope="module")
@@ -236,10 +236,10 @@ def test_wide_loop_map_full_capacity():
     m, jvoc, _ = loop_map
     feats = m["kf_kp_valid"][:small.N_KF].sum(1)
     assert feats.min() > 1000, feats
-    small.test_correct_loop_device_matches_jax(loop_map)
+    small.test_correct_loop_device_matches_jax(loop_map, True)
     jc, _ = _closers(jvoc)
     closed, jm = jc._compute_and_correct(_jmap(m), 21, 1)
-    small.test_compute_and_correct_matches_jax(loop_map, (closed, _np(jm), jc))
+    small.test_compute_and_correct_matches_jax(loop_map, (closed, _np(jm), jc), True)
     jm = _np(jm)
     steps = _assert_steps_match(jvoc, jm)
     m_cut, jvoc_cut, _ = small.make_loop_map(K=K_CUT, P=P_WIDE_CUT, N=N_WIDE,

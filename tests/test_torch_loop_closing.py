@@ -19,7 +19,9 @@ noise), depth measured; a k=8, depth=2 vocabulary is built from them.
   point positions 1e-4 on >= 99%, links >= 99% equal, loop edges equal.
 - `_compute_and_correct` with the JAX key chain's draws fed in through
   `LoopCloser.sim3_sampler`: both close, the same corrected map within
-  the bounds above.
+  the bounds above, with the scale fixed (stereo, RGB-D); with it free
+  (the monocular commands) the closers part by 1.547e-4, an expected
+  failure (FREE_SCALE_GAP). `_correct_loop_device` is held both ways.
 - The chunked global BA after the correction (3 chunks: 4 robust
   iterations, the gate, 4 + 4 on the inliers) with, between the first
   and second chunk, a keyframe erased and its slot recycled by a new
@@ -223,18 +225,47 @@ def test_full_covisibility_and_loop_edge_match_jax(loop_map):
 
 
 @pytest.fixture(scope="module")
-def jax_closed(loop_map):
-    """The JAX closer's _compute_and_correct on keyframe 21 against 1."""
+def jax_closings(loop_map):
+    """The JAX closer's _compute_and_correct on keyframe 21 against 1,
+    by fix_scale (computed once each)."""
     m, jvoc, _ = loop_map
-    jc, _ = _closers(jvoc)
-    closed, jm = jc._compute_and_correct(_jmap(m), 21, 1)
-    return closed, _np(jm), jc
+    done = {}
+
+    def closed(fix_scale: bool):
+        if fix_scale not in done:
+            jc, _ = _closers(jvoc, fix_scale)
+            ok, jm = jc._compute_and_correct(_jmap(m), 21, 1)
+            done[fix_scale] = ok, _np(jm), jc
+        return done[fix_scale]
+    return closed
 
 
-def test_compute_and_correct_matches_jax(loop_map, jax_closed):
+@pytest.fixture
+def jax_closed(jax_closings, fix_scale):
+    """The JAX closer's (closed, map, closer) at the test's fix_scale."""
+    return jax_closings(fix_scale)
+
+
+# With the scale free, the Sim3 that ComputeSim3 ends on is
+# ill-conditioned in its inputs: the two closers' optimize_sim3 inputs
+# differ by 2.7e-6 (the RANSAC S12) and 4.8e-7 (the points), float32
+# order; run in float64 from each, it ends 2.6e-5 apart (10 to 40
+# iterations alike), and the correction spreads the float32 results'
+# 2.1e-5 to 1.547e-4 on 6 of 352 pose entries against POSE_ATOL 1e-4.
+# Fed the JAX package's S12, the correction agrees
+# (test_correct_loop_device_matches_jax[False]).
+FREE_SCALE_GAP = ("free-scale ComputeSim3 spreads a 2.7e-6 input gap to 1.547e-4 in the "
+                  "corrected poses (POSE_ATOL 1e-4); ROADMAP queue 3")
+
+
+@pytest.mark.parametrize("fix_scale", [
+    True, pytest.param(False, marks=pytest.mark.xfail(strict=True, reason=FREE_SCALE_GAP))])
+def test_compute_and_correct_matches_jax(loop_map, jax_closed, fix_scale):
+    """Both closers on the same map and draws, with the scale fixed
+    (stereo, RGB-D) and free (monocular)."""
     m, jvoc, T_true = loop_map
     jclosed, jm, _ = jax_closed
-    _, tc = _closers(jvoc)
+    _, tc = _closers(jvoc, fix_scale)
     tclosed, tm = tc._compute_and_correct(_tmap(m), 21, 1)
     assert jclosed and tclosed
     _assert_maps_close(_np(tm), jm)
@@ -245,17 +276,19 @@ def test_compute_and_correct_matches_jax(loop_map, jax_closed):
     assert after < before
 
 
-def test_correct_loop_device_matches_jax(loop_map):
+@pytest.mark.parametrize("fix_scale", [True, False])
+def test_correct_loop_device_matches_jax(loop_map, fix_scale):
     """The correction alone, from one S12, and its fuse: links to the
-    start's points replace the revisit's duplicates."""
+    start's points replace the revisit's duplicates. With the scale
+    free, the essential graph optimizes 7-DoF Sim3 poses."""
     m, jvoc, T_true = loop_map
     S12 = jnp.asarray((T_true[21] @ np.linalg.inv(T_true[1])
                        @ np.asarray(m["kf_Tcw"][1]) @ np.linalg.inv(m["kf_Tcw"][1])
                        ).astype(np.float32))
     jm = jlc._correct_loop_device(_jcam(_cam()), _jmap(m), jnp.asarray(21, jnp.int32),
-                                  jnp.asarray(1, jnp.int32), S12, True)
+                                  jnp.asarray(1, jnp.int32), S12, fix_scale)
     tm = tlc._correct_loop_device(_cam(), _tmap(m), torch.tensor(21), torch.tensor(1),
-                                  torch.from_numpy(np.asarray(S12)), True)
+                                  torch.from_numpy(np.asarray(S12)), fix_scale)
     jm, tm = _np(jm), _np(tm)
     _assert_maps_close(tm, jm)
     start_pts = set(m["kf_pt_idx"][1][m["kf_pt_idx"][1] >= 0].tolist())
@@ -302,9 +335,9 @@ def _run_gba(closer, m, to_map, edits):
     return m, chunks
 
 
-def test_global_ba_matches_jax(loop_map, jax_closed):
+def test_global_ba_matches_jax(loop_map, jax_closings):
     m, jvoc, _ = loop_map
-    _, jm0, jc = jax_closed
+    _, jm0, jc = jax_closings(True)
     _, tc = _closers(jvoc)
     # both start from the JAX closer's corrected map
     jc._start_global_ba(_jmap(jm0))
