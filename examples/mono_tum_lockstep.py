@@ -52,12 +52,19 @@ It imports both packages, as the parity tests do; the port itself
 imports no JAX. On an 8-core CPU the whole takes about 80 minutes (the
 lockstep about 40, the seed runs three at once beside it).
 
-With --device cuda it runs only the port's seed runs, one after the
-other on the card, with the card's name and power limit (no JAX: the
-card's machine has none); the port's spread there beside the CPU's. The
-seeds run twice: with the card's BRIEF selection (one bf16 pass, as the
-TPU runs the JAX package's), then with the CPU's float32 one, the ORB
-angles and descriptors computed on the CPU from the card's patches.
+With --port-seeds it runs only the port's own seed runs at CARD_SEEDS on
+the CPU, WORKERS at once, and prints their ATEs (the figures
+CPU_PORT_ATE records).
+
+With --device cuda it runs only the port's seed runs, CARD_SEEDS one
+after the other on the card, with the card's name and power limit (no
+JAX: the card's machine has none). The seeds run twice: as the package
+runs, then with every SVD of the port on cuSOLVER's QR-based `gesvd`
+driver (a patch of `torch.linalg.svd` inside this script). Each run is
+paired with the CPU port's run at the same seed (CPU_PORT_ATE: the
+Tracker's and the closer's RANSAC generators are host generators, so
+both devices draw the same samples): how many seeds the card ends
+above the CPU, the two-sided sign test and the Wilcoxon signed-rank p.
 """
 
 from __future__ import annotations
@@ -106,6 +113,14 @@ COUNT_RTOL = 0.01
 F64_RATIO = 2.0
 # a seed sample lies apart from the other at a two-sided p below this
 DISTINCT_P = 0.01
+# the card's seed runs, each paired with the CPU port's at the same seed
+CARD_SEEDS = tuple(range(20))
+# the CPU port's ATE (m) by tracker seed, THREADS threads: seeds 0-9 from
+# the lockstep's seed runs, 10-19 from --port-seeds (which repeats 0-9)
+CPU_PORT_ATE = {0: 0.1190, 1: 0.1096, 2: 0.1852, 3: 0.1658, 4: 0.1992, 5: 0.3341,
+                6: 0.1868, 7: 0.1564, 8: 0.1941, 9: 0.3734, 10: 0.1859, 11: 0.1721,
+                12: 0.2871, 13: 0.2066, 14: 0.4138, 15: 0.1412, 16: 0.1539, 17: 0.1638,
+                18: 0.2926, 19: 0.1964}
 
 
 def _setup(with_jax: bool = True) -> None:
@@ -763,7 +778,7 @@ def _print_seeds(runs: list, where: str) -> None:
               f"{r['pairs']} pairs, {r['keyframes']} keyframes, {r['lost']} lost, "
               f"{r['relocs']} relocs, {r['loops']} loops ({r['wall_s']:.0f} s)")
     spread = seed_spread(runs)
-    for side in ("jax", "port", "port, float32 selection"):
+    for side in ("jax", "port", "port, gesvd"):
         if side in spread:
             s = spread[side]
             print(f"{side} ({where}), {s['n']} seeds: ATE median {s['median']:.4f} m, "
@@ -771,6 +786,39 @@ def _print_seeds(runs: list, where: str) -> None:
     for pair, p in spread["p"].items():
         print(f"{pair} ({where}), two-sided Mann-Whitney: p = {p:.4g} "
               f"({'apart' if p < DISTINCT_P else 'not apart'} at {DISTINCT_P})")
+
+
+def paired(runs: list) -> dict:
+    """Each side's seed runs paired with CPU_PORT_ATE at the same seed:
+    the seeds paired, how many end above the CPU port's, the two-sided
+    sign test's p over the pairs that differ and the Wilcoxon
+    signed-rank p."""
+    from scipy.stats import binomtest, wilcoxon
+
+    out = {}
+    for side in dict.fromkeys(r["side"] for r in runs):
+        pairs = sorted((r["seed"], r["ate_m"], CPU_PORT_ATE[r["seed"]]) for r in runs
+                       if r["side"] == side and r["seed"] in CPU_PORT_ATE)
+        if not pairs:
+            continue
+        a = np.array([x[1] for x in pairs])
+        b = np.array([x[2] for x in pairs])
+        above, differ = int((a > b).sum()), int((a != b).sum())
+        out[side] = {"seeds": [x[0] for x in pairs], "card": a.tolist(), "cpu": b.tolist(),
+                     "above": above, "n": len(pairs),
+                     "sign_p": float(binomtest(above, differ, 0.5).pvalue) if differ else 1.0,
+                     "wilcoxon_p": float(wilcoxon(a, b).pvalue) if differ else 1.0,
+                     "median": float(np.median(a)), "cpu_median": float(np.median(b))}
+    return out
+
+
+def _print_pairs(runs: list, where: str) -> None:
+    for side, r in paired(runs).items():
+        print(f"{side} ({where}) against the CPU port, seed by seed (card / CPU, m): " + ", ".join(
+            f"{s_}: {a:.4f} / {b:.4f}" for s_, a, b in zip(r["seeds"], r["card"], r["cpu"])))
+        print(f"{side} ({where}): above the CPU port on {r['above']} of {r['n']} seeds; "
+              f"median {r['median']:.4f} m against {r['cpu_median']:.4f} m; sign test p = "
+              f"{r['sign_p']:.4g}, Wilcoxon signed-rank p = {r['wilcoxon_p']:.4g}")
 
 
 def report(res: dict) -> None:
@@ -819,9 +867,13 @@ def main(argv=None) -> int:
     p.add_argument("--out", default=None, help="write the results as JSON here")
     p.add_argument("--device", default="cpu",
                    help="cuda: only the port's seed runs, on the card")
+    p.add_argument("--port-seeds", action="store_true",
+                   help="only the port's own seed runs at CARD_SEEDS, on the CPU")
     args = p.parse_args(argv)
     if args.device != "cpu":
         return card_seeds(args)
+    if args.port_seeds:
+        return cpu_port_seeds(args)
     _setup()
     with tempfile.TemporaryDirectory() as tmp:
         data = args.data or os.path.join(tmp, "tum-mono")
@@ -840,22 +892,36 @@ def main(argv=None) -> int:
     return 0
 
 
-def _cpu_orb(orig):
-    """`extractor.orb_from_patches` on a CPU copy of the card's patches:
-    the CPU's float32 BRIEF selection in place of the card's bf16 one."""
+def cpu_port_seeds(args) -> int:
+    """The port's own seed runs at CARD_SEEDS on the CPU, WORKERS at once,
+    each beside CPU_PORT_ATE's record."""
+    with tempfile.TemporaryDirectory() as tmp:
+        data = args.data or os.path.join(tmp, "tum-mono")
+        render(data)
+        with ProcessPoolExecutor(max_workers=WORKERS,
+                                 mp_context=multiprocessing.get_context("spawn")) as pool:
+            runs = list(pool.map(own_run, [(data, "port", s, "cpu") for s in CARD_SEEDS]))
+    _print_seeds(runs, f"CPU, {THREADS} threads")
+    for r in runs:
+        print(f"port seed {r['seed']} (CPU): ATE {r['ate_m']:.4f} m, recorded "
+              f"{CPU_PORT_ATE[r['seed']]:.4f} m")
+    _dump({"device": "cpu", "seeds": runs}, args.out)
+    return 0
 
-    def call(raw):
-        angle, desc = orig(raw.cpu())
-        return angle.to(raw.device), desc.to(raw.device)
+
+def _gesvd(svd):
+    """torch.linalg.svd with cuSOLVER's gesvd driver for CUDA tensors."""
+
+    def call(A, full_matrices=True, *, driver=None):
+        return svd(A, full_matrices=full_matrices, driver="gesvd" if A.is_cuda else driver)
     return call
 
 
 def card_seeds(args) -> int:
-    """The port's seed runs on the card, one after the other: with the
-    card's BRIEF selection, then with the CPU's."""
+    """The port's seed runs on the card, one after the other: as the
+    package runs, then with every SVD on gesvd; each paired with the CPU
+    port's."""
     import subprocess
-
-    from orb_slam2_test_tpu_torch.ops import extractor
 
     if not torch.cuda.is_available():
         print("mono_tum_lockstep: --device cuda needs a CUDA card", file=sys.stderr)
@@ -866,17 +932,23 @@ def card_seeds(args) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         data = args.data or os.path.join(tmp, "tum-mono")
         render(data)
-        runs = [own_run((data, "port", s, args.device)) for s in SEEDS]
-        orig = extractor.orb_from_patches
-        extractor.orb_from_patches = _cpu_orb(orig)
+        runs = []
+        for s in CARD_SEEDS:
+            runs.append(own_run((data, "port", s, args.device)))
+            print(f"port seed {s} ({card}): ATE {runs[-1]['ate_m']:.4f} m", flush=True)
+        svd = torch.linalg.svd
+        torch.linalg.svd = _gesvd(svd)
         try:
-            for s in SEEDS:
-                runs.append({**own_run((data, "port", s, args.device)),
-                             "side": "port, float32 selection"})
+            for s in CARD_SEEDS:
+                runs.append({**own_run((data, "port", s, args.device)), "side": "port, gesvd"})
+                print(f"port, gesvd seed {s} ({card}): ATE {runs[-1]['ate_m']:.4f} m",
+                      flush=True)
         finally:
-            extractor.orb_from_patches = orig
+            torch.linalg.svd = svd
     _print_seeds(runs, card)
-    _dump({"device": card, "seeds": runs, "seed_spread": seed_spread(runs)}, args.out)
+    _print_pairs(runs, card)
+    _dump({"device": card, "seeds": runs, "seed_spread": seed_spread(runs),
+           "paired": paired(runs)}, args.out)
     return 0
 
 

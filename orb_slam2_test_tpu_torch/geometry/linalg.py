@@ -1,9 +1,21 @@
-"""Closed-form inverses of small batched blocks.
+"""Closed-form inverses of small batched blocks, and the SVD of the
+ill-conditioned monocular solves.
 
 Port of orb_slam2_test_tpu/geometry/linalg.py. The local BA inverts
 one 3x3 point block per point in every iteration; the adjugate form is
 a handful of elementwise ops with no solver call, no pivoting and no
 error check that would read a status back to the host.
+
+`svd` is torch.linalg.svd with cuSOLVER's QR-based `gesvd` driver on
+the card, where PyTorch's default is the Jacobi `gesvdj`. The monocular
+initialization's 3x3 SVDs call it (rank-2 F, the E and Faugeras H
+decompositions): on the monocular commands' own inputs the default lands
+2.3-2.8 times as far from a float64 SVD as the CPU's float32 one there,
+gesvd 0.9-1.3 times, and only frames before the map exists pay gesvd's
+time (chip_smoke.py [19f]). The other SVDs keep torch.linalg.svd: the
+default is as close as the CPU's at the null vectors and the PnP DLT,
+and 1.6-1.7 times at the relocalization's `_extract_rt` and the loop's
+Horn alignment, where gesvd would add 24-84 ms a call.
 """
 
 from __future__ import annotations
@@ -58,3 +70,11 @@ def inv6x6_spd(A: torch.Tensor, eps: float = 1e-9) -> torch.Tensor:
     top = torch.cat([TL, TR], dim=-1)
     bot = torch.cat([TR.transpose(-1, -2), Sinv], dim=-1)
     return torch.cat([top, bot], dim=-2)
+
+
+def svd(A: torch.Tensor, full_matrices: bool = True):
+    """torch.linalg.svd(A, full_matrices), with the `gesvd` driver for a
+    CUDA tensor; on any other device the call is unchanged."""
+    if A.is_cuda:
+        return torch.linalg.svd(A, full_matrices=full_matrices, driver="gesvd")
+    return torch.linalg.svd(A, full_matrices=full_matrices)

@@ -13,9 +13,15 @@ IC_Angle and computeOrbDescriptor in src/ORBextractor.cc):
    `extract_raw_patches` is its one-image case.
 2. `orb_from_patches` — IC_Angle moments as one [N, 1444] x [1444, 2]
    product, the 7-tap Gaussian as two banded products in patch space,
-   mean-centering, and all 30 rotation bins' BRIEF taps as one signed
-   selection product [N, 1024] x [1024, 7680]; each keypoint keeps its
-   own bin's 256 columns.
+   mean-centering, and the BRIEF bits of each keypoint's own rotation
+   bin as a gather of its 256 tap pairs, a - b < 0 in float32.
+
+The JAX package reads the bits from one signed selection product
+[N, 1024] x [1024, 7680] over all 30 bins, one bf16 pass on a TPU. Each
+column of that matrix holds one +1 and one -1 (none where a pair's two
+taps fall on one pixel), so in float32 its entries are exactly a - b:
+the gather gives the JAX package's float32 bits, ties included, on
+every device.
 """
 
 from __future__ import annotations
@@ -30,7 +36,6 @@ import torch
 
 from orb_slam2_test_tpu_torch.ops.brief import (
     N_ANGLE_BINS,
-    N_BITS,
     PATCH,
     PATCH_RADIUS,
     _binned_pattern_indices,
@@ -212,37 +217,31 @@ def _blur_band() -> np.ndarray:
     return A
 
 
-@functools.lru_cache()
-def _selection_matrix() -> np.ndarray:
-    """[PATCH*PATCH, N_ANGLE_BINS*N_BITS] float32 in {-1, 0, +1}: column
-    (b*256+k) has +1 at bin-b tap a_k and -1 at tap b_k."""
-    idx = _binned_pattern_indices()  # [B, 256, 2]
-    D = np.zeros((N_ANGLE_BINS * N_BITS, PATCH * PATCH), np.float32)
-    rows = np.arange(N_ANGLE_BINS * N_BITS)
-    np.add.at(D, (rows, idx[..., 0].reshape(-1)), 1.0)
-    np.add.at(D, (rows, idx[..., 1].reshape(-1)), -1.0)
-    return D.T  # [1024, 7680]
-
-
 @functools.lru_cache(maxsize=None)
-def _operators(device: torch.device, select_dtype: torch.dtype):
-    """The constant operators on `device`, uploaded once."""
+def _operators(device: torch.device):
+    """The constant operators on `device`, uploaded once: the moment
+    kernels, the blur band and its transpose, and the BRIEF tap table
+    [N_ANGLE_BINS, 256, 2] (int64 indices into a flattened 32x32
+    patch)."""
     mom = torch.from_numpy(_moment_operator_38()).to(device)
     A = torch.from_numpy(_blur_band()).to(device)
-    D = torch.from_numpy(_selection_matrix()).to(device=device, dtype=select_dtype)
-    return mom, A, A.T.contiguous(), D
+    taps = torch.from_numpy(_binned_pattern_indices().astype(np.int64)).to(device)
+    return mom, A, A.T.contiguous(), taps
+
+
+def brief_bits(blurred: torch.Tensor, bin_id: torch.Tensor) -> torch.Tensor:
+    """Blurred, mean-centered patches [N, 1024] and each one's angle bin
+    [N] -> its 256 BRIEF bits [N, 256] bool: bit k is a_k - b_k < 0 over
+    the bin's k-th tap pair, in float32."""
+    pair = _operators(blurred.device)[3][bin_id]  # [N, 256, 2]
+    return blurred.gather(1, pair[..., 0]) - blurred.gather(1, pair[..., 1]) < 0.0
 
 
 def orb_from_patches(raw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Raw patches [N, 38, 38] -> (angle [N], desc [N, 8] int32).
-
-    The selection product mirrors the JAX package's Precision.DEFAULT:
-    on CUDA one bf16 pass with float32 accumulation, as the TPU runs
-    it; on the CPU float32, as JAX on the CPU runs it. Mean-centered
-    patches keep bf16 rounding below sign-decision noise."""
+    """Raw patches [N, 38, 38] -> (angle [N], desc [N, 8] int32), the
+    same float32 computation on every device."""
     n = raw.shape[0]
-    select_dtype = torch.bfloat16 if raw.is_cuda else torch.float32
-    mom_op, A, AT, D = _operators(raw.device, select_dtype)
+    mom_op, A, AT, _ = _operators(raw.device)
 
     # IC_Angle moments
     mom = raw.reshape(n, PATCH_EX * PATCH_EX) @ mom_op
@@ -252,13 +251,10 @@ def orb_from_patches(raw: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     blurred = ((A @ raw) @ AT).reshape(n, PATCH * PATCH)
     blurred = blurred - blurred.mean(dim=1, keepdim=True)
 
-    # all-bin signed taps in one product, then each keypoint's own bin;
-    # only the sign is read, so a bf16-rounded output is exact enough
-    vals = (blurred.to(select_dtype) @ D).reshape(n, N_ANGLE_BINS, N_BITS)
+    # the BRIEF taps of each keypoint's own rotation bin
     two_pi = 2.0 * math.pi
     bin_id = (
         torch.round(torch.remainder(angle, two_pi) * (N_ANGLE_BINS / two_pi))
         .to(torch.int64) % N_ANGLE_BINS
     )
-    sel = vals[torch.arange(n, device=raw.device), bin_id]
-    return angle, pack_bits(sel < 0.0)
+    return angle, pack_bits(brief_bits(blurred, bin_id))

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from orb_slam2_test_tpu_torch.geometry.camera import PinholeCamera, camera_matrix
+from orb_slam2_test_tpu_torch.geometry.linalg import svd
 from orb_slam2_test_tpu_torch.geometry.se3 import rt_to_mat
 from orb_slam2_test_tpu_torch.geometry.triangulation import triangulate_dlt
 from orb_slam2_test_tpu_torch.utils.precision import f32_matmuls
@@ -116,7 +117,7 @@ def _null_vector(A: torch.Tensor) -> torch.Tensor:
 
 def _rank2(F: torch.Tensor) -> torch.Tensor:
     """F with its smallest singular value zeroed."""
-    U, d, Vh = torch.linalg.svd(F)
+    U, d, Vh = svd(F)
     d = torch.cat([d[..., :2], torch.zeros_like(d[..., 2:])], dim=-1)
     return U @ (d[..., None] * Vh)
 
@@ -189,7 +190,7 @@ def _score_f(F, uv1, uv2, valid):
 
 def _decompose_E(E: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """E [3, 3] -> (R [4, 3, 3], t [4, 3]) candidate motions."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd(E)
     U = U * torch.sign(torch.linalg.det(U))  # proper rotations
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
     W, _ = _constants(E.device)
@@ -204,7 +205,7 @@ def _decompose_H(H: torch.Tensor, K: torch.Tensor) -> tuple[torch.Tensor, torch.
     """Faugeras's SVD decomposition of a homography into 8 (R, t)
     candidates (reference Initializer::ReconstructH)."""
     A = _inv(K) @ H @ K
-    U, d, Vt = torch.linalg.svd(A)
+    U, d, Vt = svd(A)
     s = torch.linalg.det(U) * torch.linalg.det(Vt)
     d1, d2, d3 = d[0], d[1], d[2]
     dev = H.device

@@ -5,9 +5,10 @@ the card, float32 products run in full float32 only while TF32 is off:
 PyTorch defaults cuBLAS matmuls to float32 but cuDNN convolutions to
 TF32 (about three decimal digits), which would break pixel-level
 geometry. The port's entry points call `f32_matmuls()` to state both
-settings. The one product that runs in bf16 on purpose, the BRIEF
-selection in ops/patches.py, casts its inputs explicitly and must
-accumulate in float32, as the TPU's one bf16 pass does.
+settings, and keep reduced-precision reductions off. Nothing in the
+port runs in bf16: the BRIEF bits, which the JAX package reads from one
+bf16 product on a TPU, are a float32 gather of each keypoint's taps on
+every device (ops/patches.py).
 """
 
 from __future__ import annotations

@@ -70,6 +70,18 @@ def test_copied_brief_constants(name, args):
     "name", ["_selection_matrix", "_moment_operator_38", "_blur_band"]
 )
 def test_copied_patch_operators(name):
+    if name == "_selection_matrix":
+        # the port gathers each bin's taps in place of the JAX selection
+        # product: its tap table must be that matrix's +1 and -1 rows
+        D = jpatches._selection_matrix()  # [1024, 7680]
+        taps = tpatches._operators(torch.device("cpu"))[3].numpy().reshape(-1, 2)
+        assert taps.shape[0] == D.shape[1]
+        pair = taps[:, 0] != taps[:, 1]  # a pair on one pixel is a zero column
+        cols = np.arange(D.shape[1])[pair]
+        np.testing.assert_array_equal((D != 0).sum(0), np.where(pair, 2, 0))
+        np.testing.assert_array_equal(D[taps[pair, 0], cols], 1.0)
+        np.testing.assert_array_equal(D[taps[pair, 1], cols], -1.0)
+        return
     np.testing.assert_array_equal(
         getattr(tpatches, name)(), getattr(jpatches, name)()
     )
