@@ -282,6 +282,24 @@ insertion (`entry.grow_map_step`) at the KITTI configuration, 1241x376
    driver the package's output equals, and where that is gesvd, the ms
    a call on each driver.
 
+20. the map past 512 keyframes (run after 19 and before 17): the loop
+   map of tests/test_torch_large_map.py at KITTI width (LARGE_N_KF
+   keyframes of LARGE_N features) built at LARGE_OLD's capacities,
+   `grow_map` to LARGE_NEW (K 1,024, P 393,216), `_correct_loop_device`
+   on the grown map (the pose graph's CG branch) and one
+   `bundle_adjust_partial` chunk (4 robust LM steps) from the corrected
+   map, on the card twice and on the CPU port: the two card runs
+   bit-equal, the growth equal to the CPU port's, the correction and the
+   chunk within [15c]'s bounds of the CPU port's, neither kernel
+   launched; prints each stage's ms (CUDA events) beside [15b]'s
+   correction and chunks at K 384 and the peak memory allocated; the
+   observer bitmap rebuilt at the grown shape (`build_observer_bitmap`,
+   whose `last_wins` takes an int64 [P K + 1]) twice on the card, its ms
+   and the memory its peak took, equal to the CPU port's; at the
+   very end (after 17: a process that has traced the card runs slower)
+   the correction once more under the profiler, the card's activity
+   only: its kernel launches and the device's idle share.
+
 It imports only the port, numpy and the standard library. It needs one
 CUDA card and exits non-zero, printing no result, without one. The last
 line is the JSON object {"ok": true, "device": {...}}.
@@ -434,15 +452,6 @@ def _zero_launches() -> None:
     pose_opt_cuda.POSE_OPT.launches = 0
 
 
-def _ate(traj, T_true) -> dict:
-    """ATE of an exported trajectory [(t, Tcw)] against exact Tcw poses,
-    matched by index (the timestamps are the frames')."""
-    from orb_slam2_test_tpu_torch.evaluation import absolute_trajectory_error
-
-    gt = [(t, np.linalg.inv(T)) for (t, _), T in zip(traj, T_true)]
-    return absolute_trajectory_error(traj, gt)
-
-
 def _kitti_sequence_phase(dev, card: str) -> dict:
     """[12]: 30 KITTI stereo frames through System from an empty map, on
     the card; the first 5 again on the card and the CPU, sync backend."""
@@ -451,6 +460,7 @@ def _kitti_sequence_phase(dev, card: str) -> dict:
     import torch
 
     from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.utils.loop_probes import ate as traj_ate
 
     n_frames = 30
     seq = entry.kitti_sequence(np.random.default_rng(SEED + 4), n_frames, dev)
@@ -485,7 +495,7 @@ def _kitti_sequence_phase(dev, card: str) -> dict:
     stats = tracker.stats
     n_kf = stats["n_kf"]
     traj = tracker.export_trajectory()
-    ate = _ate(traj, seq.T_true)
+    ate = traj_ate(traj, seq.T_true)
     max_err = max(float(np.abs(T - seq.T_true[i])[:3, 3].max()) for i, (_, T) in enumerate(traj))
     kf_ids = sorted(tracker.map.kf_frame_id[tracker.map.kf_valid].tolist())
 
@@ -840,105 +850,20 @@ CORRECT_PT_ATOL = 1e-2  # points on >= 99%: they move with their keyframe
 GBA_POSE_ATOL = 5e-3
 
 
-class _LoopTimes:
-    """CUDA-event ms of each call of the loop closer's stages: detection
-    (on_new_keyframe minus the Sim3 and correction), ComputeSim3
-    (_compute_and_correct minus the correction), the correction program,
-    each global BA chunk and the apply. Every wrapper waits for its
-    end event, so the stages are timed one by one."""
-
-    def __init__(self, closer, lc_module):
-        import torch
-
-        self.torch = torch
-        self.ms = {k: [] for k in ("on_new_keyframe", "compute_and_correct",
-                                   "correct_loop_device", "gba_chunk", "apply_gba")}
-        self.loop_flush = []  # (kf, on_new_keyframe, compute_and_correct, correct) per loop
-        self.captured = None  # the first correction's inputs, for [15c] / [15d]
-        self.on_capture = None
-        self._restore = []
-        lc = lc_module
-        self._wrap(lc, "_correct_loop_device", "correct_loop_device", capture=True)
-        self._wrap(lc, "_apply_gba_device", "apply_gba")
-        self._wrap(closer, "_compute_and_correct", "compute_and_correct")
-        self._wrap(closer, "on_new_keyframe", "on_new_keyframe")
-        chunk = closer.advance_global_ba
-
-        def advance(m):
-            if not closer.gba_running():
-                return chunk(m)
-            return self._timed(chunk, "gba_chunk", m)
-
-        closer.advance_global_ba = advance
-        self._restore.append((closer, "advance_global_ba", None))
-        self.closer = closer
-
-    def _timed(self, fn, name, *a, **k):
-        torch = self.torch
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = fn(*a, **k)
-        end.record()
-        end.synchronize()
-        self.ms[name].append(start.elapsed_time(end))
-        return out
-
-    def _wrap(self, obj, attr, name, capture=False):
-        fn = getattr(obj, attr)
-
-        def timed(*a, **k):
-            if capture and self.captured is None:
-                m, kf_id, cand, S12, fix = a[1:6]
-                self.captured = ([x.clone() for x in m], kf_id.clone(), cand.clone(),
-                                 S12.clone(), fix)
-                if self.on_capture is not None:
-                    self.on_capture(m)
-            out = self._timed(fn, name, *a, **k)
-            if name == "on_new_keyframe" and out[1]:
-                self.loop_flush.append((a[1], self.ms["on_new_keyframe"][-1],
-                                        self.ms["compute_and_correct"][-1],
-                                        self.ms["correct_loop_device"][-1]))
-            return out
-
-        setattr(obj, attr, timed)
-        self._restore.append((obj, attr, fn))
-
-    def restore(self):
-        for obj, attr, fn in self._restore:
-            if fn is None:
-                delattr(obj, attr)
-            else:
-                setattr(obj, attr, fn)
-
-    def report(self, tag: str, card: str) -> dict:
-        for kf, onk, cc, corr in self.loop_flush:
-            print(f"{tag} loop at keyframe {kf}: its flush {onk:.1f} ms on CUDA events "
-                  f"(detection {onk - cc:.1f}, ComputeSim3 {cc - corr:.1f} with the global "
-                  f"BA's start, _correct_loop_device {corr:.1f}; {card})")
-        print(f"{tag} global BA chunks: " + ", ".join(f"{x:.1f}" for x in self.ms["gba_chunk"])
-              + f" ms; the apply {', '.join(f'{x:.1f}' for x in self.ms['apply_gba'])} ms "
-              f"(inside the last chunk; CUDA events)")
-        return {"loop_flush_ms": [{"kf": kf, "flush": onk, "detection": onk - cc,
-                                   "compute_sim3": cc - corr, "correct_loop_device": corr}
-                                  for kf, onk, cc, corr in self.loop_flush],
-                "gba_chunk_ms": self.ms["gba_chunk"], "apply_gba_ms": self.ms["apply_gba"],
-                "on_new_keyframe_median_ms": (statistics.median(self.ms["on_new_keyframe"])
-                                              if self.ms["on_new_keyframe"] else None)}
-
-
 def _out_and_back_phase(dev, card: str) -> dict:
     """[15a]: the out-and-back ring of tests/test_loop_closing_e2e.py
     through the port's Tracker on the card."""
     import torch
 
     from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.utils.loop_probes import LoopTimes
     from orb_slam2_test_tpu_torch.engine import loop_closing as lc
 
     t0 = time.perf_counter()
     scene = entry.out_and_back_scene(np.random.default_rng(0), device=dev)
     tracker = entry.out_and_back_tracker(scene, device=dev)
     render_s = time.perf_counter() - t0
-    times = _LoopTimes(tracker.loop_closer, lc)
+    times = LoopTimes(tracker.loop_closer, lc)
     n = len(scene.images)
     _zero_launches()
     t0 = time.perf_counter()
@@ -967,15 +892,6 @@ def _out_and_back_phase(dev, card: str) -> dict:
     return out
 
 
-def _trajectory_on(tracker, m) -> list:
-    """The tracked trajectory against map m's keyframe poses, as
-    `export_trajectory` computes it, without draining the backend."""
-    kf_Tcw, kf_valid, kf_parent, kf_Tcp = (
-        x.cpu().numpy() for x in (m.kf_Tcw, m.kf_valid, m.kf_parent, m.kf_Tcp))
-    return [(ts, T_cr @ tracker._resolve_ref_pose(int(ref), kf_Tcw, kf_valid, kf_parent, kf_Tcp))
-            for ts, ref, T_cr in tracker.rel_trajectory]
-
-
 def _kitti_loop_phase(dev, card: str) -> dict:
     """[15b]-[15d]: a KITTI-geometry ring at full width through System,
     its loop correction and one global BA chunk against the CPU port,
@@ -983,6 +899,8 @@ def _kitti_loop_phase(dev, card: str) -> dict:
     import torch
 
     from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.utils.loop_probes import LoopTimes, trajectory_on
+    from orb_slam2_test_tpu_torch.utils.loop_probes import ate as traj_ate
     from orb_slam2_test_tpu_torch.engine import loop_closing as lc
     from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState
     from orb_slam2_test_tpu_torch.solvers import ba_core
@@ -1000,12 +918,12 @@ def _kitti_loop_phase(dev, card: str) -> dict:
           f"{entry.KITTI_CAM.height} (radius {RING_RADIUS} m, {RING_REVOLUTIONS} laps) rendered "
           f"in {render_s:.1f} s by {workers} processes; {cfg.n_features} features, "
           f"K={cfg.max_keyframes} P={cfg.max_points}, the default vocabulary")
-    times = _LoopTimes(closer, lc)
+    times = LoopTimes(closer, lc)
     before = {}
 
     def at_capture(m):
-        traj = _trajectory_on(tracker, m)
-        before.update(frames=len(traj), ate=_ate(traj, seq.T_true[:len(traj)]))
+        traj = trajectory_on(tracker.rel_trajectory, m)
+        before.update(frames=len(traj), ate=traj_ate(traj, seq.T_true[:len(traj)]))
 
     times.on_capture = at_capture
     frame_ms, per_frame, loop_frames = [], [], []
@@ -1031,7 +949,7 @@ def _kitti_loop_phase(dev, card: str) -> dict:
     seq_s = time.perf_counter() - t_seq
     launches = _launch_counts()
     stats = dict(tracker.stats)
-    ate_end = _ate(tracker.export_trajectory(), seq.T_true)
+    ate_end = traj_ate(tracker.export_trajectory(), seq.T_true)
     counts = {}
     for pf in per_frame:
         counts[str(pf)] = counts.get(str(pf), 0) + 1
@@ -1129,10 +1047,284 @@ def _kitti_loop_phase(dev, card: str) -> dict:
                ate_end_m=ate_end["rmse"], frame_ms_median=statistics.median(frame_ms),
                frame_ms_mean=statistics.mean(frame_ms), loop_frames=loop_frames,
                launches_per_frame=counts, launches=launches, ring=seq,
+               correct_K=times.K["correct_loop_device"],
                correct_vs_cpu={"pose_gap": pose_gap, "links": links, "pt_share": pt_share,
                                "card_self_gap": self_gap},
                gba_chunk_vs_cpu={"pose_gap": gba_gap, "pt_share": gba_pt_share})
     return out
+
+
+# [20]: the map past 512 keyframes: tests/test_torch_large_map.py's loop
+# map (362 keyframes one degree apart on the out-and-back ring, the loop
+# at 361-1) at KITTI width, built at K 512 and grown to 1,024, where the
+# pose graph takes its CG branch (solvers/pose_graph.DENSE_MAX_K)
+LARGE_N_KF = 362
+LARGE_N = 2000
+LARGE_WORLD = 16_000  # tests/test_torch_full_capacity_loop.py's wide wall
+LARGE_OLD = (512, 196_608)  # (K, P) before the growth
+LARGE_NEW = (1024, 393_216)  # after it
+
+
+def _device_ms(device, fn):
+    """(fn(), its ms): CUDA events on the card, the host clock on the CPU."""
+    import torch
+
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _large_map_run(device, m_np: dict, S12: np.ndarray) -> dict:
+    """[20]'s path on `device`: grow_map from LARGE_OLD to LARGE_NEW, then
+    `_correct_loop_device` on the grown map, then one global BA chunk (4
+    robust LM steps) from the corrected map; each stage's result and ms."""
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+    from orb_slam2_test_tpu_torch.slam_map.mapstate import MapCapacity, grow_map
+    from orb_slam2_test_tpu_torch.solvers import ba_core
+
+    device = torch.device(device)
+    old, new = (MapCapacity(max_keyframes=k, max_features=LARGE_N, max_points=p)
+                for k, p in (LARGE_OLD, LARGE_NEW))
+    cam = entry.LOOP_MAP_CAM
+    m0 = entry.map_from_numpy(m_np, device)
+    kf, cand = (torch.tensor(x, device=device) for x in (LARGE_N_KF - 1, 1))
+    s12 = torch.from_numpy(S12).to(device)
+    grown, grow_ms = _device_ms(device, lambda: grow_map(m0, old, new))
+    corr, corr_ms = _device_ms(
+        device, lambda: lc._correct_loop_device(cam, grown, kf, cand, s12, True))
+    prob = lc.LoopCloser._build_gba_prob(corr)
+    cost0 = ba_core._robust_cost(prob, cam)
+    lam = torch.full((), 1e-4, device=device)
+    active = torch.ones_like(prob.obs_valid)
+    chunk, chunk_ms = _device_ms(device, lambda: ba_core.bundle_adjust_partial(
+        prob, cam, lam, cost0, active, iters=4, robust=True))
+    return {"grown": grown, "corrected": corr, "chunk": chunk, "cost0": cost0,
+            "prob": prob, "ms": {"grow": grow_ms, "correct": corr_ms, "chunk": chunk_ms}}
+
+
+def _bitmap_build(device, grown) -> tuple:
+    """The observer bitmap rebuilt at the grown shape, as the Tracker
+    rebuilds it after a correction or a growth (`build_observer_bitmap`,
+    whose `utils.scatter.last_wins` takes an int64 [P K + 1]): the
+    [P, K] bitmap, its ms and, on the card, the GiB its peak took above
+    what was allocated before it (None on the CPU)."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.slam_map.covisibility import build_observer_bitmap
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    bm, ms = _device_ms(device, lambda: build_observer_bitmap(grown))
+    extra = ((torch.cuda.max_memory_allocated() - base) / 2 ** 30
+             if device.type == "cuda" else None)
+    return bm, ms, extra
+
+
+def _chunk_ab(device, prob, cam, cost0, pairs: int = 2) -> dict:
+    """One global BA chunk with its sums over observations in sorted
+    order (`utils.scatter.segments`, the package's path on the card)
+    and with index_add_'s atomics in their place, in alternating pairs:
+    ms (CUDA events) of each."""
+    import torch
+
+    from orb_slam2_test_tpu_torch.solvers import ba_core
+
+    lam = torch.full((), 1e-4, device=device)
+    active = torch.ones_like(prob.obs_valid)
+    sorted_sum = ba_core.segment_sum
+
+    def atomic_sum(n, idx, v, seg=None):
+        return sorted_sum(n, idx, v)
+
+    ms = {"sorted": [], "index_add_": []}
+    for _ in range(pairs):
+        for name, fn in (("sorted", sorted_sum), ("index_add_", atomic_sum)):
+            ba_core.segment_sum = fn
+            try:
+                ms[name].append(_device_ms(device, lambda: ba_core.bundle_adjust_partial(
+                    prob, cam, lam, cost0, active, iters=4, robust=True))[1])
+            finally:
+                ba_core.segment_sum = sorted_sum
+    return ms
+
+
+def _bit_equal(a, b) -> bool:
+    """Two tuples of tensors equal bit for bit, field by field."""
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(a, b, strict=True))
+
+
+def _profiled_idle(fn) -> dict:
+    """fn() once under torch.profiler, the card's activity only (the
+    host's ops would treble the trace's cost): its kernel launches, the
+    device's busy ms and idle share over the host's wall."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy_ms = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3
+    return {"launches": len(kernels), "wall_ms": wall_ms, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms}
+
+
+def _large_map_phase(dev, card: str, loop_stats: dict) -> dict:
+    """[20]: the growth from 512 to 1,024 keyframe slots, the loop
+    correction on the grown map and one global BA chunk, on the card
+    twice (bit-equal) and on the CPU port (within [15c]'s bounds); the
+    ms of each and the peak memory, beside [15b]'s correction and chunk
+    at its own K; the inputs of `_large_map_profile` under
+    "profile_inputs"."""
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.solvers import pose_graph
+
+    t_phase = time.perf_counter()
+    m_np, T_true = entry.synthetic_loop_map(
+        n_kf=LARGE_N_KF, K=LARGE_OLD[0], N=LARGE_N, P=LARGE_OLD[1], n_world=LARGE_WORLD,
+        revisit=LARGE_N_KF - 2)
+    build_s = time.perf_counter() - t_phase
+    kf, cand = LARGE_N_KF - 1, 1
+    S12 = (T_true[kf] @ np.linalg.inv(T_true[cand]) @ m_np["kf_Tcw"][cand]
+           @ np.linalg.inv(m_np["kf_Tcw"][cand])).astype(np.float32)
+    feats = m_np["kf_kp_valid"][:LARGE_N_KF].sum(1)
+    _check(pose_graph.DENSE_MAX_K < LARGE_NEW[0], "[20] the grown map is not on the CG branch")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_launches()
+    runs = [_large_map_run(dev, m_np, S12)]
+    launches = _launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    runs.append(_large_map_run(dev, m_np, S12))
+    t_cpu = time.perf_counter()
+    cpu = _large_map_run("cpu", m_np, S12)
+    cpu_s = time.perf_counter() - t_cpu
+    g = runs[0]["grown"]
+    chunk_ab = _chunk_ab(dev, runs[0]["prob"], entry.LOOP_MAP_CAM, runs[0]["cost0"])
+    bitmaps = [_bitmap_build(dev, g) for _ in range(2)]
+    bm_cpu, bm_cpu_ms, _ = _bitmap_build("cpu", cpu["grown"])
+    bm_equal = all(torch.equal(bm.cpu(), bm_cpu) for bm, _, _ in bitmaps)
+    bm_ms, bm_gib = [x[1] for x in bitmaps], max(x[2] for x in bitmaps)
+    del bitmaps, bm_cpu
+
+    a, b = runs
+    equal = {"grow": _bit_equal(a["grown"], b["grown"]),
+             "correct": _bit_equal(a["corrected"], b["corrected"]),
+             "chunk": _bit_equal(a["chunk"][0], b["chunk"][0])
+             and torch.equal(a["chunk"][2], b["chunk"][2])}
+    chunk_self_gap = float((a["chunk"][0].cam_Tcw - b["chunk"][0].cam_Tcw).abs().max())
+    grow_cpu = _bit_equal([x.cpu() for x in a["grown"]], cpu["grown"])
+    A, B = entry.map_to_numpy(a["corrected"]), entry.map_to_numpy(cpu["corrected"])
+    live = A["kf_valid"]
+    pose_gap = float(np.abs(A["kf_Tcw"][live] - B["kf_Tcw"][live]).max())
+    links = float((A["kf_pt_idx"][live] == B["kf_pt_idx"][live]).mean())
+    pv = A["pt_valid"] & B["pt_valid"]
+    pt_gap = np.abs(A["pt_xyz"][pv] - B["pt_xyz"][pv]).max(-1)
+    pt_share = float((pt_gap <= CORRECT_PT_ATOL).mean())
+    cp, pp = a["chunk"][0], cpu["chunk"][0]
+    free = ~pp.cam_fixed
+    gba_gap = float((cp.cam_Tcw.cpu() - pp.cam_Tcw).abs()[free].max())
+    gba_pt = (cp.pt_xyz.cpu() - pp.pt_xyz).abs().max(-1).values[pp.pt_valid]
+    gba_pt_share = float((gba_pt <= CORRECT_PT_ATOL).float().mean())
+    ms = {k: [r["ms"][k] for r in runs] for k in ("grow", "correct", "chunk")}
+    ref = loop_stats.get("loop_flush_ms") or [{}]
+    ref_chunks = loop_stats.get("gba_chunk_ms") or []
+    print(f"[20] the loop map at KITTI width: {LARGE_N_KF} live keyframes of {LARGE_N} "
+          f"features ({feats.min()}-{feats.max()} each), {int(m_np['pt_valid'].sum())} live "
+          f"points, built in {build_s:.1f} s; grown from K {LARGE_OLD[0]} / P {LARGE_OLD[1]} "
+          f"to {LARGE_NEW[0]} / {LARGE_NEW[1]} (CG above K = {pose_graph.DENSE_MAX_K}), "
+          f"the correction {kf} -> {cand}, one global BA chunk over "
+          f"{a['prob'].obs_valid.numel()} observation slots "
+          f"({int(a['prob'].obs_valid.sum())} valid)")
+    print(f"[20] card ms (CUDA events, runs 1 / 2): growth {ms['grow'][0]:.1f} / "
+          f"{ms['grow'][1]:.1f}, _correct_loop_device {ms['correct'][0]:.1f} / "
+          f"{ms['correct'][1]:.1f}, chunk {ms['chunk'][0]:.1f} / {ms['chunk'][1]:.1f}; "
+          f"beside [15b]'s at K = {(loop_stats.get('correct_K') or [None])[0]}: correction "
+          f"{ref[0].get('correct_loop_device', float('nan')):.1f}, chunks "
+          f"{', '.join(f'{x:.1f}' for x in ref_chunks)} ({card})")
+    print(f"[20] the chunk with its sums in sorted order / with index_add_'s atomics, "
+          f"alternating pairs: {chunk_ab} ms (CUDA events; {card})")
+    print(f"[20] peak memory allocated {peak_gb:.2f} GiB; launches (patch_gather, pose_opt) "
+          f"{launches}")
+    print(f"[20] the observer bitmap rebuilt at K {LARGE_NEW[0]} / P {LARGE_NEW[1]} "
+          f"(build_observer_bitmap; last_wins's int64 [P K + 1] is "
+          f"{(LARGE_NEW[0] * LARGE_NEW[1] + 1) * 8 / 2 ** 30:.2f} GiB): card ms (CUDA events, "
+          f"runs 1 / 2) {bm_ms[0]:.1f} / {bm_ms[1]:.1f}, its peak {bm_gib:.2f} GiB above what "
+          f"was allocated before it; equal to the CPU port's: {bm_equal} (CPU {bm_cpu_ms:.1f} "
+          f"ms; {card})")
+    print(f"[20] card run 1 vs run 2 bit-equal: {equal} (chunk poses {chunk_self_gap:.2e}); "
+          f"card vs CPU port ({cpu_s:.1f} s on the CPU; CPU ms {cpu['ms']}): growth equal "
+          f"{grow_cpu}, correction poses {pose_gap:.2e} (bound {CORRECT_POSE_ATOL:g}), links "
+          f"{links:.4%} (bound {CORRECT_LINKS_MIN:.0%}), points within {CORRECT_PT_ATOL:g} on "
+          f"{pt_share:.4%} (largest {pt_gap.max():.2e}); chunk poses {gba_gap:.2e} (bound "
+          f"{GBA_POSE_ATOL:g}), points on {gba_pt_share:.4%}, cost "
+          f"{float(a['cost0']):.1f} -> card {float(a['chunk'][2]):.1f} / CPU "
+          f"{float(cpu['chunk'][2]):.1f}")
+    _check(all(equal.values()), f"[20] two card runs differ: {equal}")
+    _check(grow_cpu, "[20] the card's growth differs from the CPU port's")
+    _check(pose_gap <= CORRECT_POSE_ATOL, f"[20] correction poses {pose_gap}")
+    _check(links >= CORRECT_LINKS_MIN, f"[20] correction links {links}")
+    _check(pt_share >= 0.99, f"[20] correction points {pt_share}")
+    _check(gba_gap <= GBA_POSE_ATOL, f"[20] chunk poses {gba_gap}")
+    _check(gba_pt_share >= 0.99, f"[20] chunk points {gba_pt_share}")
+    _check(bool(torch.isfinite(cp.cam_Tcw).all()) and float(a["chunk"][2]) < float(a["cost0"]),
+           "[20] the chunk is not finite or did not lower the cost")
+    _check(launches == {"patch_gather": 0, "pose_opt": 0},
+           f"[20] the correction and the global BA launch neither kernel: {launches}")
+    _check(bm_equal, "[20] the card's observer bitmap differs from the CPU port's")
+    out = {"n_kf": LARGE_N_KF, "n_features": LARGE_N, "K": LARGE_NEW[0], "P": LARGE_NEW[1],
+           "ms": ms, "cpu_ms": cpu["ms"], "cpu_s": cpu_s, "bit_equal": equal,
+           "chunk_sorted_vs_index_add_ms": chunk_ab, "peak_memory_gib": peak_gb,
+           "bitmap_ms": bm_ms, "bitmap_cpu_ms": bm_cpu_ms, "bitmap_peak_gib": bm_gib,
+           "launches": launches,
+           "correct_vs_cpu": {"pose_gap": pose_gap, "links": links, "pt_share": pt_share},
+           "chunk_vs_cpu": {"pose_gap": gba_gap, "pt_share": gba_pt_share},
+           "phase_s": time.perf_counter() - t_phase,
+           "profile_inputs": (g, kf, cand, S12)}
+    print(f"[20] took {out['phase_s']:.1f} s")
+    return out
+
+
+def _large_map_profile(dev, card: str, inputs) -> dict:
+    """[20]'s correction once more under the profiler: its kernel
+    launches, the device's busy ms and idle share. Run last, since a
+    process that has traced the card runs slower afterwards."""
+    import torch
+
+    from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.engine import loop_closing as lc
+
+    grown, kf, cand, S12 = inputs
+    t0 = time.perf_counter()
+    idle = _profiled_idle(lambda: lc._correct_loop_device(
+        entry.LOOP_MAP_CAM, grown, torch.tensor(kf, device=dev), torch.tensor(cand, device=dev),
+        torch.from_numpy(S12).to(dev), True))
+    print(f"[20] the correction at K {grown.kf_valid.shape[0]} under the profiler (after [17]): "
+          f"{idle['launches']} kernel launches, device busy {idle['busy_ms']:.1f} of "
+          f"{idle['wall_ms']:.1f} ms, idle share {idle['idle_share']:.3f} "
+          f"({time.perf_counter() - t0:.1f} s with the trace's processing; {card})")
+    return idle
 
 
 # [16b]: the last joint problem of the JAX package's multi-sequence run
@@ -1322,6 +1514,7 @@ def _multi_seq_phase(dev, card: str, tmp: str) -> dict:
     from orb_slam2_test_tpu_torch.io.datasets import MemorySequence
     from orb_slam2_test_tpu_torch.parallel import dist_ba, multi_map
     from orb_slam2_test_tpu_torch.slam_map.mapstate import MapState
+    from orb_slam2_test_tpu_torch.utils.loop_probes import ate as traj_ate
 
     t0 = time.perf_counter()
     seqs = entry.kitti_multi_sequence(MULTI_SEQ_SEEDS, MULTI_SEQ_FRAMES, dev)
@@ -1399,7 +1592,7 @@ def _multi_seq_phase(dev, card: str, tmp: str) -> dict:
     ates = []
     for i, (s, seq) in enumerate(zip(systems, seqs)):
         stats = s.tracker.stats
-        ate = _ate(s.tracker.export_trajectory(), seq.T_true)
+        ate = traj_ate(s.tracker.export_trajectory(), seq.T_true)
         ates.append(ate["rmse"])
         print(f"[16c] seq {i}: {stats['n_kf']} keyframes, {stats['lost_frames']} lost, ATE "
               f"{ate['rmse']:.4e} m over {ate['n_pairs']} frames, track_stereo median "
@@ -1768,6 +1961,7 @@ def _kitti_live_phase(dev, card: str) -> dict:
     import torch
 
     from orb_slam2_test_tpu_torch import entry
+    from orb_slam2_test_tpu_torch.utils.loop_probes import ate as traj_ate
     from orb_slam2_test_tpu_torch.utils.profiling import TRACE_FILE, profiler
     from orb_slam2_test_tpu_torch.viz.ar import fit_plane_ransac, tracked_world_points
 
@@ -1791,7 +1985,7 @@ def _kitti_live_phase(dev, card: str) -> dict:
 
     # -- tracking, launches and the live-vs-direct gap ------------------
     traj = lv["system"].tracker.export_trajectory()
-    ate = _ate(traj, live.T_true)
+    ate = traj_ate(traj, live.T_true)
     gap, ids = _live_vs_direct(lv, dr)
     print(f"    states {''.join(x[0] for x in lv['states'])}, {lv['sent']} pairs sent, "
           f"{summary['frames']} tracked, {summary['lost_frames']} lost, {lv['dropped']} "
@@ -3858,9 +4052,16 @@ def main() -> int:
     drivers_stats = _dataset_drivers_phase(dev, card)
     print(f"[19] phases 1-16, 18 and 19 took {time.perf_counter() - t_run:.1f} s, the "
           "kernels' build included")
+    large_stats = _large_map_phase(dev, card, loop_stats)
+    print(f"[20] phases 1-16 and 18-20 took {time.perf_counter() - t_run:.1f} s, the "
+          f"kernels' build included")
     live_stats = _kitti_live_phase(dev, card)
+    print(f"[17] phases 1-20 took {time.perf_counter() - t_run:.1f} s, the kernels' build "
+          f"included")
+    large_stats["correction_profile"] = _large_map_profile(dev, card,
+                                                           large_stats.pop("profile_inputs"))
     run_s = time.perf_counter() - t_run
-    print(f"[17] phases 1-19 took {run_s:.1f} s, the kernels' build included")
+    print(f"[20] the profile done: all phases took {run_s:.1f} s, the kernels' build included")
 
     kernels = []
     for name, source, replaces, err in (
@@ -3900,7 +4101,8 @@ def main() -> int:
                              "ba_window_sweep": tools_stats["ba_window_sweep"]["launches"],
                              **{f"dataset_{k}": v["launches"]
                                 for k, v in drivers_stats["runs"].items()},
-                             "dataset_mono_tum_full": drivers_stats["mono_tum_full"]["launches"]},
+                             "dataset_mono_tum_full": drivers_stats["mono_tum_full"]["launches"],
+                             "large_map": large_stats["launches"]},
         "tracking_step_ms": step_ms_mono,
         "brief_gather_vs_allbin_product_ms": brief_ab,
         "tracking_step_wall_ms": step_wall_ms,
@@ -3924,6 +4126,7 @@ def main() -> int:
         "kitti_live": {k: v for k, v in live_stats.items() if k != "launches"},
         "offline_tools": tools_stats,
         "dataset_drivers": drivers_stats,
+        "large_map": {k: v for k, v in large_stats.items() if k != "launches"},
         "light_insert_pose_spread_per_1e-6_m": spread,
         "insert_pose_gap_vs_cpu_same_inputs": same_gap,
         "light_insert_repeat_gap": repeat_gap,

@@ -816,8 +816,8 @@ class Tracker:
     def current_pose(self):
         return np.asarray(self.last_Tcw)
 
-    def _resolve_ref_pose(self, ref: int, kf_Tcw, kf_valid, kf_parent,
-                          kf_Tcp) -> np.ndarray:
+    @staticmethod
+    def _resolve_ref_pose(ref: int, kf_Tcw, kf_valid, kf_parent, kf_Tcp) -> np.ndarray:
         """World -> ref pose, climbing the spanning tree through culled
         keyframes (reference SaveTrajectory*: while pKF->isBad(), Trw =
         Trw * pKF->mTcp, pKF = pKF->GetParent())."""

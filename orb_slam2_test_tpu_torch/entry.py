@@ -1081,13 +1081,15 @@ def kitti_loop_system(device: torch.device | str = "cuda", vocabulary="default",
 def kitti_loop_run(frames: int = 1200, radius: float = 60.0, revolutions: float = 2.0,
                    max_keyframes: int = 128, max_points: int = 49152, workers: int = 1,
                    seed: int = 0, device: torch.device | str = "cuda", log=print,
-                   diag: str | None = None) -> dict:
+                   diag: str | None = None, setup=None) -> dict:
     """The multi-lap run of the JAX package's runs/kitti00_full through
     the port: render the loop (1200 frames, radius 60 m, ~2 laps by
     default), then `cli.run` on a MemorySequence with small starting
     capacities so the map grows, the ATE against the rendered truth.
-    Returns cli.run's summary plus the render time and the ms of every
-    frame (host wall) and of the frames that closed a loop."""
+    `setup(system, seq)`, if given, is called once the System is built
+    and before the first frame (an instrument's hook). Returns cli.run's
+    summary plus the render time and the ms of every frame (host wall)
+    and of the frames that closed a loop."""
     import os
     import tempfile
     import time
@@ -1102,6 +1104,8 @@ def kitti_loop_run(frames: int = 1200, radius: float = 60.0, revolutions: float 
     log(f"rendered {frames} stereo frames {KITTI_CAM.width}x{KITTI_CAM.height} "
         f"(radius {radius} m, {revolutions} laps) in {render_s:.1f} s with {workers} workers")
     system = kitti_loop_system(device, max_keyframes=max_keyframes, max_points=max_points)
+    if setup is not None:
+        setup(system, seq)
     tracker = system.tracker
     frame_ms, loop_frames = [], []
     track_stereo = system.track_stereo
@@ -1152,14 +1156,16 @@ def _ring_pose(theta: float) -> np.ndarray:
 
 
 def synthetic_loop_map(n_kf: int = 22, K: int = 32, N: int = 200, P: int = 4096,
-                       n_world: int = 1600, seed: int = 0) -> tuple[dict, list]:
+                       n_world: int = 1600, seed: int = 0,
+                       revisit: int = _LOOP_REVISIT) -> tuple[dict, list]:
     """A small map that closes a loop, without tracking: n_kf RGB-D
-    keyframes (LOOP_MAP_CAM) 18 degrees apart on the out-and-back ring,
-    looking out at a wall of n_world points 6-7 m away, their poses
-    drifted along the path (1 cm and 0.17 degrees more per keyframe).
-    Keyframes from 20 on revisit the views of 0, 1, ... but hold
-    duplicates of the points the start saw (no association across the
-    loop). Features are the points' random descriptors with 0-3 flipped
+    keyframes (LOOP_MAP_CAM) 360 / revisit degrees apart on the
+    out-and-back ring (18 by default), looking out at a wall of n_world
+    points 6-7 m away, their poses drifted along the path (by default 1
+    cm and 0.17 degrees more per keyframe; scaled by 20 / revisit, so the
+    drift over one lap stays the same). Keyframes from `revisit` on
+    revisit the views of 0, 1, ... but hold duplicates of the points the
+    start saw (no association across the loop). Features are the points' random descriptors with 0-3 flipped
     bits at their projections (0.3 px noise), with depth; points are
     back-projected from their first keyframe's drifted pose; each
     keyframe's parent is the one before. Returns (the map as the JAX
@@ -1176,10 +1182,13 @@ def synthetic_loop_map(n_kf: int = 22, K: int = 32, N: int = 200, P: int = 4096,
 
     m = map_to_numpy(make_empty_map(
         MapCapacity(max_keyframes=K, max_features=N, max_points=P), "cpu"))
-    T_true = [_ring_pose(np.deg2rad(_LOOP_STEP_DEG * (i % _LOOP_REVISIT)) + 0.01 * (i >= _LOOP_REVISIT))
+    step_deg = _LOOP_STEP_DEG * _LOOP_REVISIT / revisit
+    drift = torch.tensor([0.01, 0.0, 0.01, 0.0, 0.003, 0.0], dtype=torch.float64)
+    if revisit != _LOOP_REVISIT:
+        drift = drift * (_LOOP_REVISIT / revisit)
+    T_true = [_ring_pose(np.deg2rad(step_deg * (i % revisit)) + 0.01 * (i >= revisit))
               for i in range(n_kf)]
-    T_est = [se3_exp(torch.tensor([0.01, 0.0, 0.01, 0.0, 0.003, 0.0], dtype=torch.float64)
-                     * i).numpy() @ T for i, T in enumerate(T_true)]
+    T_est = [se3_exp(drift * i).numpy() @ T for i, T in enumerate(T_true)]
     pt_of_world = {}  # world point -> map point (the start's and the revisit's apart)
     n_pt = 0
     for i in range(n_kf):
@@ -1209,7 +1218,7 @@ def synthetic_loop_map(n_kf: int = 22, K: int = 32, N: int = 200, P: int = 4096,
         m["kf_parent"][i] = i - 1
         Twc_est = np.linalg.inv(Te)
         for row, w in enumerate(vis):
-            key = (w, i >= _LOOP_REVISIT)
+            key = (w, i >= revisit)
             if key not in pt_of_world:
                 ray = np.array([(uv[row, 0] - cam.cx) / cam.fx, (uv[row, 1] - cam.cy) / cam.fy, 1])
                 X = Twc_est[:3, :3] @ (ray * z[w]) + Twc_est[:3, 3]

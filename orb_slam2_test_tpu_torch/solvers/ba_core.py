@@ -42,7 +42,7 @@ from orb_slam2_test_tpu_torch.geometry.robust import (
 )
 from orb_slam2_test_tpu_torch.geometry.se3 import se3_exp, se3_project
 from orb_slam2_test_tpu_torch.solvers.reprojection import project_residual
-from orb_slam2_test_tpu_torch.utils.scatter import segment_sum
+from orb_slam2_test_tpu_torch.utils.scatter import segment_sum, segments
 
 
 class BAProblem(NamedTuple):
@@ -102,18 +102,24 @@ def _robust_cost(prob: BAProblem, cam: PinholeCamera,
 
 def _normal_blocks(prob, cam, lam, robust, active):
     """The block reductions both solvers share: (Hcc_d, Hpp_inv, bc, bp,
-    Wcp [O, 6, 3], seen [Q])."""
+    Wcp [O, 6, 3], seen [Q], (camera, point) Segments). On the card the
+    sums over observations go through the Segments, so that each sums
+    its rows in one order on every call (`utils.scatter.segment_sum`);
+    on the CPU the Segments are None."""
     C = prob.cam_Tcw.shape[0]
     Q = prob.pt_xyz.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
     res, Jc, Jp, w = _blocks(prob, cam, robust, active)
+    # an observation of weight 0 adds zeros to every sum below
+    seg_c, seg_p = ((segments(C, oc, w != 0.0), segments(Q, op, w != 0.0)) if w.is_cuda
+                    else (None, None))
     wJc = Jc * w[:, None, None]
     wJp = Jp * w[:, None, None]
     wr = w[:, None] * res.r
-    Hcc = segment_sum(C, oc, torch.einsum("oki,okj->oij", Jc, wJc))
-    Hpp = segment_sum(Q, op, torch.einsum("oki,okj->oij", Jp, wJp))
-    bc = segment_sum(C, oc, -torch.einsum("oki,ok->oi", Jc, wr))
-    bp = segment_sum(Q, op, -torch.einsum("oki,ok->oi", Jp, wr))
+    Hcc = segment_sum(C, oc, torch.einsum("oki,okj->oij", Jc, wJc), seg_c)
+    Hpp = segment_sum(Q, op, torch.einsum("oki,okj->oij", Jp, wJp), seg_p)
+    bc = segment_sum(C, oc, -torch.einsum("oki,ok->oi", Jc, wr), seg_c)
+    bp = segment_sum(Q, op, -torch.einsum("oki,ok->oi", Jp, wr), seg_p)
     Wcp = torch.einsum("oki,okj->oij", Jc, wJp)  # [O, 6, 3]
 
     # LM damping, multiplicative on the diagonal (g2o's Levenberg)
@@ -122,7 +128,7 @@ def _normal_blocks(prob, cam, lam, robust, active):
     dHp = lam * torch.clamp(torch.diagonal(Hpp, dim1=-2, dim2=-1), min=1e-6)
     Hpp_d = Hpp + torch.diag_embed(dHp)
     # unobserved points get identity blocks (their dxp stays 0: bp = 0)
-    seen = segment_sum(Q, op, w) > 0.0
+    seen = segment_sum(Q, op, w, seg_p) > 0.0
     eye3 = torch.eye(3, dtype=Hpp.dtype, device=Hpp.device)
     Hpp_d = torch.where(seen[:, None, None], Hpp_d, eye3)
     # inverted in float64: at small damping a point seen along nearly one
@@ -132,7 +138,7 @@ def _normal_blocks(prob, cam, lam, robust, active):
     # JAX package's compiled inv3x3 fuses the cofactors' multiply-adds
     # and stays bounded)
     Hpp_inv = inv3x3(Hpp_d.double()).to(Hpp_d.dtype)
-    return Hcc_d, Hpp_inv, bc, bp, Wcp, seen
+    return Hcc_d, Hpp_inv, bc, bp, Wcp, seen, (seg_c, seg_p)
 
 
 def _back_substitute(prob, Hpp_inv, bp, u, seen):
@@ -148,7 +154,7 @@ def _schur_step(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
     C = prob.cam_Tcw.shape[0]
     Q = prob.pt_xyz.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
-    Hcc_d, Hpp_inv, bc, bp, Wcp, seen = _normal_blocks(prob, cam, lam, robust, active)
+    Hcc_d, Hpp_inv, bc, bp, Wcp, seen, _ = _normal_blocks(prob, cam, lam, robust, active)
     Wqc = segment_sum(Q * C, op * C + oc, Wcp).view(Q, C, 6, 3)
 
     # S = Hcc_d - sum_q Wqc Hpp^-1 Wqc^T, rhs = bc - Wqc Hpp^-1 bp
@@ -181,20 +187,21 @@ def _schur_step_cg(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
     C = prob.cam_Tcw.shape[0]
     Q = prob.pt_xyz.shape[0]
     oc, op = prob.obs_cam.long(), prob.obs_pt.long()
-    Hcc_d, Hpp_inv, bc, bp, Wcp, seen = _normal_blocks(prob, cam, lam, robust, active)
+    Hcc_d, Hpp_inv, bc, bp, Wcp, seen, (seg_c, seg_p) = _normal_blocks(
+        prob, cam, lam, robust, active)
     fix = prob.cam_fixed
     eye6 = torch.eye(6, dtype=Hcc_d.dtype, device=Hcc_d.device)
 
     def schur_matvec(v):  # v [C, 6]
         v = torch.where(fix[:, None], 0.0, v)
         hv = torch.einsum("cij,cj->ci", Hcc_d, v)
-        u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, v[oc]))
+        u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, v[oc]), seg_p)
         y = torch.einsum("qij,qj->qi", Hpp_inv, u)
-        wv = segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, y[op]))
+        wv = segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, y[op]), seg_c)
         return torch.where(fix[:, None], v, hv - wv)
 
     yb = torch.einsum("qij,qj->qi", Hpp_inv, bp)
-    rhs = bc - segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, yb[op]))
+    rhs = bc - segment_sum(C, oc, torch.einsum("oij,oj->oi", Wcp, yb[op]), seg_c)
     rhs = torch.where(fix[:, None], 0.0, rhs)
 
     Minv = torch.linalg.inv_ex(Hcc_d + 1e-6 * eye6).inverse
@@ -221,7 +228,7 @@ def _schur_step_cg(prob: BAProblem, cam: PinholeCamera, lam, robust: bool,
         rz = rz_new
     dxc = torch.where(torch.isfinite(x).all(), x, 0.0)
     dxc = torch.where(fix[:, None], 0.0, dxc)
-    u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, dxc[oc]))
+    u = segment_sum(Q, op, torch.einsum("oji,oj->oi", Wcp, dxc[oc]), seg_p)
     return dxc, _back_substitute(prob, Hpp_inv, bp, u, seen)
 
 

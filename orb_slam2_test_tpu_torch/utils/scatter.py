@@ -12,7 +12,14 @@ no constant is copied from the host.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
+
+# `segments` spreads the rows that add nothing over this many segments
+# past the real ones, so that none of them is long: a segment is summed
+# by one thread per output element
+_SPREAD = 4096
 
 
 def _padded(x: torch.Tensor, fill) -> torch.Tensor:
@@ -60,9 +67,37 @@ def put_add(x: torch.Tensor, idx: torch.Tensor, v) -> torch.Tensor:
     return _padded(x, 0).index_add_(0, idx, v.to(x.dtype))[:-1]
 
 
-def segment_sum(n: int, idx: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+class Segments(NamedTuple):
+    """An index's rows in a fixed order for `segment_sum`: their stable
+    sort by slot, and the rows of each slot."""
+
+    order: torch.Tensor  # [O] int64
+    lengths: torch.Tensor  # [n + _SPREAD] int64
+
+
+def segments(n: int, idx: torch.Tensor, live: torch.Tensor) -> Segments:
+    """The Segments of idx over n slots, where the rows that are not
+    `live` add zeros (they go to spare segments past n). No host read."""
+    spare = n + torch.arange(idx.numel(), device=idx.device) % _SPREAD
+    key = torch.where(live, idx, spare)
+    lengths = torch.zeros(n + _SPREAD, dtype=torch.int64, device=idx.device)
+    lengths.index_add_(0, key, torch.ones_like(key))  # integer adds: exact
+    return Segments(torch.argsort(key, stable=True), lengths)
+
+
+def segment_sum(n: int, idx: torch.Tensor, v: torch.Tensor,
+                seg: Segments | None = None) -> torch.Tensor:
     """zeros(n, ...) with the rows of v added at idx (repeats accumulate;
-    every idx < n): the JAX package's `jnp.zeros(...).at[idx].add(v)`."""
+    every idx < n): the JAX package's `jnp.zeros(...).at[idx].add(v)`.
+
+    Given `seg` (`segments(n, idx, live)`, v zero where not live), each
+    slot sums its rows in sorted order, on the card one thread per output
+    element: the same sum on every call, where index_add_'s atomics on
+    the card sum in another order each time. Without it index_add_, on
+    the CPU a sequential sum."""
+    if seg is not None:
+        return torch.segment_reduce(v[seg.order], "sum", lengths=seg.lengths, axis=0,
+                                    unsafe=True)[:n]
     return v.new_zeros((n,) + v.shape[1:]).index_add_(0, idx, v)
 
 

@@ -3,6 +3,11 @@ package at the card's capacities, on the CPU: tests/test_torch_loop_closing.py's
 loop map (`make_loop_map`: 22 keyframes on the out-and-back ring, the
 loop at keyframes 20-21) at K = 384 keyframes and P = 131,072 points,
 `entry.KITTI_CFG`'s capacities, with that file's checks and tolerances.
+This file holds the map, the JAX closer's correction and the shared
+helpers, the correction from one S12 and the wide map (`-m slow`);
+`_compute_and_correct` and the global BA are
+tests/test_torch_full_capacity_closing.py, so that the Tier-1 command's
+`--dist loadfile` spreads the two.
 
 - `_correct_loop_device` from one S12 and `_compute_and_correct` with
   the JAX key chain's draws: POSE_ATOL (1e-4) on keyframe poses and on
@@ -159,45 +164,6 @@ def jax_closed(loop_map):
 
 def test_correct_loop_device_full_capacity(loop_map):
     small.test_correct_loop_device_matches_jax(loop_map, True)
-
-
-def test_compute_and_correct_full_capacity(loop_map, jax_closed):
-    small.test_compute_and_correct_matches_jax(loop_map, jax_closed, True)
-
-
-@pytest.fixture(scope="module")
-def gba_runs(loop_map, jax_closed):
-    """The global BA in both packages from the JAX package's corrected
-    map, at K = 384 and cut to K = 32, P = 4096."""
-    jvoc, jm = loop_map[1], jax_closed[1]
-    return {"full": _gba(jvoc, jm), "cut": _gba(jvoc, _cut(jm, K_CUT, P_CUT))}
-
-
-def test_global_ba_full_capacity_matches_jax(gba_runs):
-    jm, tm = gba_runs["full"]
-    small._assert_maps_close(tm, jm, pose_atol=GBA_ATOL, pt_atol=GBA_ATOL)
-    pv = jm["pt_valid"]
-    pts = np.abs(tm["pt_xyz"][pv] - jm["pt_xyz"][pv]).max(-1)
-    print(f"global BA at K = {K}, P = {P}: poses within "
-          f"{np.abs(tm['kf_Tcw'] - jm['kf_Tcw'])[jm['kf_valid']].max():.3e} of the JAX "
-          f"package's, points {(pts <= GBA_ATOL).mean():.4f} within {GBA_ATOL:g} (largest "
-          f"{pts.max():.3e})")
-
-
-def test_global_ba_capacity_alone_moves_nothing(gba_runs):
-    """Each package's global BA at K = 384 equals, bit for bit, its run
-    on the same live content at K = 32, P = 4096: the padded slots enter
-    no sum that changes a live result."""
-    for side, name in enumerate(("jax", "port")):
-        full, cut = gba_runs["full"][side], gba_runs["cut"][side]
-        for f in ("kf_Tcw", "pt_xyz", "kf_pt_idx", "pt_valid", "kf_valid"):
-            np.testing.assert_array_equal(cut[f], full[f][:cut[f].shape[0]], err_msg=(name, f))
-        assert not full["kf_valid"][K_CUT:].any() and not full["pt_valid"][P_CUT:].any()
-
-
-def test_global_ba_steps_match_jax(loop_map, jax_closed):
-    e = _assert_steps_match(loop_map[1], jax_closed[1])
-    print(f"global BA steps from the JAX states (poses / points' p99): {e}")
 
 
 # ---------------------------------------------------------------------------
